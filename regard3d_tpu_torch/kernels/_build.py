@@ -1,0 +1,73 @@
+"""Build the CUDA sources of ``regard3d_tpu_torch/csrc`` with nvcc at first use.
+
+Each ``.cu`` file becomes a shared library with a plain C interface, loaded
+with ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go
+to :func:`runtime.kernel_build_dir` under a name that carries a hash of the
+source and the flags, so an edited source is rebuilt and concurrent builders
+never read a half-written file (write to a temporary name, then rename).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict
+
+from regard3d_tpu_torch import runtime
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def _lib_path(source: str) -> str:
+    with open(os.path.join(CSRC, source), "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    stem = os.path.splitext(source)[0]
+    return os.path.join(runtime.kernel_build_dir(),
+                        f"lib{stem}_{h.hexdigest()[:12]}.so")
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its library exists; returns the
+    library's path. Raises with nvcc's output if the build fails."""
+    out = _lib_path(source)
+    if os.path.exists(out):
+        return out
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
+    os.close(fd)
+    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+                        os.path.join(CSRC, source)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if r.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed on {source}:\n{r.stdout}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first if needed."""
+    lib = _LIBS.get(source)
+    if lib is None:
+        lib = _LIBS[source] = ctypes.CDLL(build(source))
+    return lib

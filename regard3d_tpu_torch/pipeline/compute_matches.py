@@ -1,0 +1,482 @@
+"""Compute-matches stage driver (single process).
+
+Counterpart of ``regard3d_tpu/pipeline/compute_matches.py``: features ->
+exhaustive pairs -> putative matching (ratio test) -> geometric filtering
+(AC-RANSAC F, then E with the overlap prune, then H) -> match files +
+adjacency SVGs + statistics + report.
+
+* Pairs are matched in fixed blocks of 64 (the list padded by repeating the
+  last pair, as the reference does); on the card each block is one launch
+  of the CUDA matcher (``kernels/match.py``).
+* The filters run pair blocks bucketed by padded match capacity, with the
+  pair block as the leading dimension of every RANSAC tensor.
+* Every pair's random draws come from a generator seeded with
+  (seed, i, j, filter), so a pair's result does not depend on the block it
+  lands in. ``sample_provider`` injects precomputed draws instead (tests
+  feed the reference's).
+
+Artifacts: matches.putative.txt, matches.{f,e,h}.txt (OpenMVG text format
+``I J\\nN\\ni j`` per pair), Putative/GeometricAdjacencyMatrix.svg,
+sfm_data.json + lists.txt, Matching_Report.html.
+
+Waiting for later slices: the device-mesh, multi-process and retrieval
+branches of the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch.core import sfm_data as sd
+from regard3d_tpu_torch.core.types import RADIAL_K3, round_up
+from regard3d_tpu_torch.kernels import match as match_mod
+from regard3d_tpu_torch.kernels import ransac
+from regard3d_tpu_torch.pipeline import features as feat_mod
+from regard3d_tpu_torch.pipeline.report import write_matches_report
+
+# matcher menu parity (src/res/Regard3dMainFrameBase.fbp:9300); every preset
+# maps onto the exact matcher
+MATCHER_PRESETS = ("flann", "kgraph-fast", "kgraph-medium", "kgraph-precise",
+                   "brute-force", "mrpt", "hnsw-fast", "hnsw-medium",
+                   "hnsw-precise")
+
+PAIR_BLOCK = 64      # pairs per matcher launch
+
+# descriptor width handed to the matcher: LIOP's 144 columns (a multiple of
+# 16, which the CUDA kernel needs). The reference stores 256 (a TPU lane
+# width); the extra zero columns change no distance.
+MATCH_DIM = round_up(feat_mod.LIOP_DIM, 16)
+
+# Geometric-filter block budget for an 80 GB card. The live set of one
+# chunk of the sweep is block * chunk * models * cap f32 residual elements
+# times the ~8 temporaries of the residual and score (homogeneous points,
+# lines, numerator, denominator, masks). The budget below bounds
+# block * chunk * cap at 2^26 (the reference used 2^24 for a 16 GB TPU):
+# for the 5-point E sweep (64 draws x 10 models = 640 candidates, five
+# times the F/H chunk of 128) that is 2^26 * 5 * 8 * 4 B ~= 10.7 GB at the
+# largest block, an eighth of the card; F/H need a fifth of that.
+FILTER_BUDGET = 1 << 26
+FILTER_MAX_BLOCK = 128
+
+SampleProvider = Callable[[str, int, int, np.ndarray, int, int], np.ndarray]
+
+
+def matcher_knobs(matcher: str) -> Dict:
+    """Map the reference's ANN menu onto the exact matcher's knobs: the
+    approximate presets become bfloat16 descriptors (f32 accumulation);
+    ``brute-force`` and the ``*-precise`` presets stay f32."""
+    m = (matcher or "brute-force").lower()
+    precise = m == "brute-force" or m.endswith("-precise")
+    return {"bf16": not precise}
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchConfig:
+    ratio: float = 0.8                # presets 0.6/0.7/0.8/0.9
+    matcher: str = "brute-force"
+    mutual: bool = False
+    ransac_iters: int = 1024          # reference default 2048 (:2100)
+    max_err_px: float = 4.0
+    e_min_matches: int = 50           # overlap prune (:2173-2191)
+    e_min_survival: float = 0.3
+    compute_homography: bool = True
+
+
+def exhaustive_pairs(n: int) -> List[Tuple[int, int]]:
+    return [(i, j) for i in range(n) for j in range(i + 1, n)]
+
+
+def sequential_pairs(n: int, window: int) -> List[Tuple[int, int]]:
+    """Ordered-capture pair pruning: each view pairs with its next
+    ``window`` successors."""
+    return [(i, j) for i in range(n)
+            for j in range(i + 1, min(i + 1 + window, n))]
+
+
+def save_matches_txt(path: str, matches: Dict[Tuple[int, int], np.ndarray]):
+    with open(path, "w") as f:
+        for (i, j), m in sorted(matches.items()):
+            if len(m) == 0:
+                continue
+            f.write(f"{i} {j}\n{len(m)}\n")
+            for a, b in m:
+                f.write(f"{a} {b}\n")
+
+
+def load_matches_txt(path: str) -> Dict[Tuple[int, int], np.ndarray]:
+    out = {}
+    with open(path) as f:
+        lines = f.read().split()
+    pos = 0
+    while pos < len(lines):
+        i, j = int(lines[pos]), int(lines[pos + 1])
+        n = int(lines[pos + 2])
+        pos += 3
+        arr = np.asarray(lines[pos:pos + 2 * n], np.int64).reshape(n, 2)
+        pos += 2 * n
+        out[(i, j)] = arr
+    return out
+
+
+def best_validated_pairs(matches_dir: str, kind: str = "f",
+                         limit: int = 0) -> List[Dict]:
+    """Pairs ranked by geometrically-validated match count (the list the
+    reference's triangulation dialog shows for initial-pair selection)."""
+    geo = load_matches_txt(os.path.join(matches_dir, f"matches.{kind}.txt"))
+    put_path = os.path.join(matches_dir, "matches.putative.txt")
+    put = load_matches_txt(put_path) if os.path.exists(put_path) else {}
+    rows = []
+    for (i, j), m in geo.items():
+        n_put = len(put.get((i, j), m))
+        rows.append({
+            "i": int(i), "j": int(j),
+            "geometric": int(len(m)),
+            "putative": int(n_put),
+            "survival": float(len(m)) / max(n_put, 1),
+        })
+    rows.sort(key=lambda r: -r["geometric"])
+    return rows[:limit] if limit else rows
+
+
+def adjacency_svg(path: str, n: int,
+                  counts: Dict[Tuple[int, int], int], cell: int = 12):
+    """Adjacency-matrix SVG (PutativeAdjacencyMatrix.svg parity)."""
+    size = (n + 1) * cell
+    mx = max(counts.values(), default=1) or 1
+    rects = []
+    for (i, j), c in counts.items():
+        if c <= 0:
+            continue
+        o = int(255 * (1.0 - min(c / mx, 1.0)))
+        for (a, b) in ((i, j), (j, i)):
+            rects.append(
+                f'<rect x="{(b + 1) * cell}" y="{(a + 1) * cell}" '
+                f'width="{cell - 1}" height="{cell - 1}" '
+                f'fill="rgb({o},{o},255)"><title>({a},{b}): {c}</title>'
+                f'</rect>')
+    svg = (f'<svg xmlns="http://www.w3.org/2000/svg" width="{size}" '
+           f'height="{size}">' + "".join(rects) + "</svg>")
+    with open(path, "w") as f:
+        f.write(svg)
+
+
+def _match_block(desc, mask, parr, cfg: MatchConfig, bf16: bool):
+    idx, _, ok = match_mod.match_pair_block(desc, mask, parr, cfg.ratio,
+                                            True, bf16)
+    if cfg.mutual:
+        rev = parr.flip(-1)
+        idx_b, _, ok_b = match_mod.match_pair_block(desc, mask, rev,
+                                                    cfg.ratio, True, bf16)
+        ok = match_mod.mutual_filter(idx, ok, idx_b, ok_b)
+    return idx, ok
+
+
+def match_all_pairs(kps, descs, cfg: MatchConfig,
+                    pairs: Optional[List[Tuple[int, int]]] = None,
+                    progress=None) -> Dict[Tuple[int, int], np.ndarray]:
+    """Putative matching for every pair: fused distance + top-2 + ratio.
+    kps/descs: padded (B, N, ...) tensors from ``features.load_all_padded``
+    on the stage's device; one matcher call per block of 64 pairs."""
+    B = descs.data.shape[0]
+    if pairs is None:
+        pairs = exhaustive_pairs(B)
+    bf16 = matcher_knobs(cfg.matcher)["bf16"]
+    out = {}
+    total = len(pairs)
+    padded = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
+    for start in range(0, len(padded), PAIR_BLOCK):
+        chunk = padded[start:start + PAIR_BLOCK]
+        parr = torch.as_tensor(np.asarray(chunk, np.int32))
+        idx, ok = _match_block(descs.data, descs.mask, parr, cfg, bf16)
+        idx_np = idx.cpu().numpy()
+        ok_np = ok.cpu().numpy()
+        for bi, (i, j) in enumerate(chunk):
+            if start + bi >= total:
+                break
+            ia = np.where(ok_np[bi])[0]
+            out[(i, j)] = np.stack([ia, idx_np[bi][ia]], -1).astype(np.int64)
+            if progress:
+                progress(min(start + bi + 1, total), total)
+    return out
+
+
+def e_overlap_keep(num_geometric: int, num_putative: int,
+                   cfg: MatchConfig) -> bool:
+    """E-matrix overlap prune: keep a pair only with >= 50 geometric
+    matches AND >= 30% putative survival."""
+    return (num_geometric >= cfg.e_min_matches
+            and num_geometric >= cfg.e_min_survival * num_putative)
+
+
+@dataclasses.dataclass
+class FilterResult:
+    f: Dict[Tuple[int, int], np.ndarray]
+    e: Dict[Tuple[int, int], np.ndarray]
+    h: Dict[Tuple[int, int], np.ndarray]
+    stats: Dict
+
+
+_FILTER_SAMPLE = {"f": 8, "e": 5, "h": 4}
+_FILTER_SALT = {"f": 0, "e": 1, "h": 2}
+
+
+def pair_generator(seed: int, i: int, j: int, kind: str) -> torch.Generator:
+    """The CPU generator of one pair's draws for filter ``kind``, seeded from
+    (seed, i, j, kind): independent of block composition."""
+    ss = np.random.SeedSequence([seed, i, j, _FILTER_SALT[kind]])
+    g = torch.Generator()
+    g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> 1))
+    return g
+
+
+def _block_draws(kind, group, mask_np, iters, seed, provider, dev):
+    """Sample indices (block, iters, s) for one filter over one pair block:
+    from the provider if given, else from the per-pair generators."""
+    s = _FILTER_SAMPLE[kind]
+    block = mask_np.shape[0]
+    if provider is not None:
+        idx = np.zeros((block, iters, s), np.int64)
+        for bi, ((i, j), _m) in enumerate(group):
+            idx[bi] = provider(kind, i, j, mask_np[bi], iters, s)
+        return torch.as_tensor(idx, device=dev)
+    gens = [pair_generator(seed, i, j, kind) for (i, j), _m in group]
+    if block > len(group):   # empty padding slots: any draws will do
+        gens += [torch.Generator().manual_seed(seed)] * (block - len(group))
+    return ransac._draw_samples_batch(gens, torch.as_tensor(mask_np,
+                                                            device=dev),
+                                      iters, s)
+
+
+def geometric_filter(kps, putative: Dict[Tuple[int, int], np.ndarray],
+                     image_sizes: np.ndarray,
+                     focals: Optional[np.ndarray],
+                     cfg: MatchConfig, seed: int = 0,
+                     progress=None, device=None,
+                     sample_provider: Optional[SampleProvider] = None
+                     ) -> FilterResult:
+    """AC-RANSAC F -> E (+overlap prune) -> H over pair blocks.
+
+    Pairs are bucketed by padded match capacity and each bucket is filtered
+    in blocks with the pair block as leading dimension. ``device``: where
+    the filters run (default: the keypoints' device). ``sample_provider``:
+    optional ``(kind, i, j, mask (cap,), iters, s) -> (iters, s)`` indices
+    that replace the generator draws (kind in "f", "e", "h")."""
+    xy = kps.xy.cpu().numpy()
+    dev = kps.xy.device if device is None else torch.device(device)
+    out_f, out_e, out_h = {}, {}, {}
+
+    items = [(pr, m) for pr, m in sorted(putative.items()) if len(m) >= 16]
+    buckets: Dict[int, list] = {}
+    for pr, m in items:
+        cap = max(64, 1 << int(np.ceil(np.log2(len(m)))))
+        buckets.setdefault(cap, []).append((pr, m))
+
+    max_err_f = np.float32(cfg.max_err_px ** 2)
+    n_done, n_total = 0, len(items)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    for cap, blist in sorted(buckets.items()):
+        chunked_iters = min(cfg.ransac_iters, 128)
+        block = max(1, min(FILTER_MAX_BLOCK,
+                           FILTER_BUDGET // max(chunked_iters * cap, 1)))
+        # eager code needs no static block shape: a short bucket is not
+        # padded up to the budget (pairs are independent of their block)
+        block = min(block, len(blist))
+        for s0 in range(0, len(blist), block):
+            group = blist[s0:s0 + block]
+            x1 = np.zeros((block, cap, 2), np.float32)
+            x2 = np.zeros((block, cap, 2), np.float32)
+            x1n = np.zeros((block, cap, 2), np.float32)
+            x2n = np.zeros((block, cap, 2), np.float32)
+            maskb = np.zeros((block, cap), bool)
+            la_f = np.zeros((block,), np.float32)
+            la_h = np.zeros((block,), np.float32)
+            la_e = np.zeros((block,), np.float32)
+            me_f = np.full((block,), max_err_f, np.float32)
+            me_e = np.full((block,), max_err_f, np.float32)
+            has_e = np.zeros((block,), bool)
+            for bi, ((i, j), m) in enumerate(group):
+                n = len(m)
+                p1 = xy[i][m[:, 0]]
+                p2 = xy[j][m[:, 1]]
+                x1[bi, :n] = p1
+                x2[bi, :n] = p2
+                maskb[bi, :n] = True
+                w = float(max(image_sizes[i][0], image_sizes[j][0]))
+                h = float(max(image_sizes[i][1], image_sizes[j][1]))
+                la_f[bi] = ransac._logalpha0_line(w, h)
+                la_h[bi] = ransac._logalpha0_point(w, h)
+                if focals is not None and focals[i] > 0 and focals[j] > 0:
+                    has_e[bi] = True
+                    x1n[bi, :n] = (p1 - image_sizes[i] / 2.0) / focals[i]
+                    x2n[bi, :n] = (p2 - image_sizes[j] / 2.0) / focals[j]
+                    fmean = float(np.sqrt(focals[i] * focals[j]))
+                    diag = np.sqrt(w * w + h * h)
+                    la_e[bi] = np.log10(2.0 * diag / (w * h) * fmean)
+                    me_e[bi] = (cfg.max_err_px / fmean) ** 2
+            mask_e = maskb & has_e[:, None]
+            iters = cfg.ransac_iters
+            draws = lambda kind, mk: _block_draws(kind, group, mk, iters,
+                                                  seed, sample_provider, dev)
+
+            with torch.no_grad():
+                rf = ransac.acransac_f_batch(
+                    None, t(x1), t(x2), t(maskb), t(la_f), t(me_f),
+                    iters=iters, idx=draws("f", maskb))
+                re = None
+                if has_e.any():
+                    re = ransac.acransac_e_batch(
+                        None, t(x1n), t(x2n), t(mask_e), t(la_e), t(me_e),
+                        iters=iters, idx=draws("e", mask_e))
+                rh = None
+                if cfg.compute_homography:
+                    rh = ransac.acransac_h_batch(
+                        None, t(x1), t(x2), t(maskb), t(la_h), t(me_f),
+                        iters=iters, idx=draws("h", maskb))
+
+            f_valid = rf.valid.cpu().numpy()
+            f_inl = rf.inliers.cpu().numpy()
+            e_valid = re.valid.cpu().numpy() if re is not None else None
+            e_inl = re.inliers.cpu().numpy() if re is not None else None
+            h_valid = rh.valid.cpu().numpy() if rh is not None else None
+            h_inl = rh.inliers.cpu().numpy() if rh is not None else None
+            for bi, ((i, j), m) in enumerate(group):
+                n = len(m)
+                if f_valid[bi]:
+                    out_f[(i, j)] = m[f_inl[bi][:n]]
+                if e_valid is not None and has_e[bi] and e_valid[bi]:
+                    inl = e_inl[bi][:n]
+                    if e_overlap_keep(int(inl.sum()), n, cfg):
+                        out_e[(i, j)] = m[inl]
+                if h_valid is not None and h_valid[bi]:
+                    out_h[(i, j)] = m[h_inl[bi][:n]]
+            n_done += len(group)
+            if progress:
+                progress(n_done, n_total)
+
+    stats = {
+        "pairs_putative": len(putative),
+        "pairs_f": len(out_f),
+        "pairs_e": len(out_e),
+        "pairs_h": len(out_h),
+        "matches_putative": int(sum(len(m) for m in putative.values())),
+        "matches_f": int(sum(len(m) for m in out_f.values())),
+        "matches_e": int(sum(len(m) for m in out_e.values())),
+        "matches_h": int(sum(len(m) for m in out_h.values())),
+    }
+    return FilterResult(out_f, out_e, out_h, stats)
+
+
+def write_stage_sfm_data(out_dir: str, image_sizes: np.ndarray,
+                         focals: Optional[np.ndarray],
+                         image_names: Optional[Sequence[str]] = None):
+    """views+intrinsics sfm_data.json + legacy lists.txt in the matches dir
+    (one radial-K3 intrinsic per view, principal point at the center)."""
+    V = len(image_sizes)
+    f = (np.asarray(focals) if focals is not None
+         else 1.1 * image_sizes.max(1))
+    params = np.zeros((V, 9), np.float32)
+    params[:, 0] = f
+    params[:, 1] = image_sizes[:, 0] / 2.0
+    params[:, 2] = image_sizes[:, 1] / 2.0
+    sd.save_views_json(os.path.join(out_dir, "sfm_data.json"),
+                       widths=image_sizes[:, 0].astype(np.int32),
+                       heights=image_sizes[:, 1].astype(np.int32),
+                       intrinsic_id=np.arange(V),
+                       models=np.full((V,), RADIAL_K3), params=params,
+                       image_names=image_names)
+    with open(os.path.join(out_dir, "lists.txt"), "w") as fh:
+        for i in range(V):
+            name = image_names[i] if image_names else f"image{i:06d}.jpg"
+            fh.write(f"{name};{image_sizes[i, 0]};{image_sizes[i, 1]}\n")
+
+
+def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
+                        threshold: float = 0.0007,
+                        cfg: MatchConfig = MatchConfig(),
+                        focals: Optional[np.ndarray] = None,
+                        max_keypoints: int = 4096,
+                        force: bool = False,
+                        image_names: Optional[Sequence[str]] = None,
+                        detector: str = "fast-akaze",
+                        progress=None,
+                        pairs: Optional[List[Tuple[int, int]]] = None,
+                        device=None, seed: int = 0,
+                        sample_provider: Optional[SampleProvider] = None
+                        ) -> Dict:
+    """Full compute-matches step on a list of gray images. Returns stats,
+    with the stage's time split under ``time_features_s``,
+    ``time_matching_s`` and ``time_filter_s`` (profiler spans
+    ``compute_matches.{features,matching,filter}``). Runs on ``device``
+    (default cuda; raises if no card and the CPU was not asked for)."""
+    dev = runtime.resolve_device(device)
+    t0 = time.time()
+    os.makedirs(out_dir, exist_ok=True)
+    sizes = np.asarray([[im.shape[1], im.shape[0]] for im in images])
+    write_stage_sfm_data(out_dir, sizes, focals, image_names)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    # one profiler span per phase, each ending in a device synchronize, so
+    # a trace attributes every device operation to its phase
+    with record_function("compute_matches.features"):
+        counts = feat_mod.extract_features(images, out_dir, threshold,
+                                           max_keypoints, force=force,
+                                           detector=detector,
+                                           progress=progress, device=dev)
+        sync()
+    t1 = time.time()
+    with record_function("compute_matches.matching"):
+        kps, descs = feat_mod.load_all_padded(out_dir, len(images),
+                                              pad_to=256,
+                                              padded_dim=MATCH_DIM,
+                                              device=dev)
+        putative = match_all_pairs(kps, descs, cfg, pairs=pairs,
+                                   progress=progress)
+        sync()
+    t2 = time.time()
+    with record_function("compute_matches.filter"):
+        filt = geometric_filter(kps, putative, sizes, focals, cfg, seed=seed,
+                                progress=progress,
+                                sample_provider=sample_provider)
+        sync()
+    t3 = time.time()
+
+    save_matches_txt(os.path.join(out_dir, "matches.putative.txt"), putative)
+    save_matches_txt(os.path.join(out_dir, "matches.f.txt"), filt.f)
+    save_matches_txt(os.path.join(out_dir, "matches.e.txt"), filt.e)
+    save_matches_txt(os.path.join(out_dir, "matches.h.txt"), filt.h)
+    n = len(images)
+    adjacency_svg(os.path.join(out_dir, "PutativeAdjacencyMatrix.svg"), n,
+                  {k: len(v) for k, v in putative.items()})
+    adjacency_svg(os.path.join(out_dir, "GeometricAdjacencyMatrix.svg"), n,
+                  {k: len(v) for k, v in filt.f.items()})
+
+    stats = dict(filt.stats)
+    stats["keypoints"] = counts
+    stats["elapsed_s"] = time.time() - t0
+    stats["time_features_s"] = t1 - t0
+    stats["time_matching_s"] = t2 - t1
+    stats["time_filter_s"] = t3 - t2
+
+    pair_rows = [{"i": int(i), "j": int(j),
+                  "putative": int(len(putative.get((i, j), ()))),
+                  "geometric": int(len(m)),
+                  "survival": (len(m)
+                               / max(len(putative.get((i, j), ())), 1))}
+                 for (i, j), m in sorted(filt.f.items(),
+                                         key=lambda kv: -len(kv[1]))]
+    write_matches_report(
+        os.path.join(out_dir, "Matching_Report.html"),
+        {k: v for k, v in stats.items() if isinstance(v, (int, float, str))},
+        pair_rows, keypoint_counts=counts, image_names=image_names)
+    return stats

@@ -1,0 +1,215 @@
+"""Port parity: ``regard3d_tpu_torch.kernels.match`` against the JAX matcher.
+
+The same numpy descriptors (made from a seed) go through the JAX package
+(its plain ``match_pair_ref`` / ``match_pair_block`` path and its Pallas
+kernels in interpret mode, as ``tests/test_match.py`` runs them on the CPU)
+and through the port's plain PyTorch version, which is what the port's
+wrappers run for CPU tensors. The CUDA kernel itself is held against the
+same plain version on the card by ``chip_smoke.py``.
+
+Descriptors are unit-norm rows, as LIOP's are. Tolerances: the nearest
+index and the ratio-test verdict must be identical; d1/d2 agree within 1e-4
+relative, with an absolute floor of 1e-5 (both sides form |a|^2 + |b|^2 -
+2 a.b from 256-term f32 dot products in different orders, and that
+cancellation leaves a few ulps of the norms, ~2e-7 each, in small
+distances).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from regard3d_tpu.kernels import match as jm
+from regard3d_tpu_torch.kernels import match as tm
+
+# several pytest workers share the host: a small intra-op pool per worker
+# keeps torch from oversubscribing the cores
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+RTOL = 1e-4
+ATOL = 1e-5
+
+
+def unit_rows(x):
+    return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def make_descs(rng, m, n, d=256, planted=32):
+    a = unit_rows(rng.normal(size=(m, d)))
+    b = unit_rows(rng.normal(size=(n, d)))
+    b[:planted] = unit_rows(a[:planted] + 0.01 * rng.normal(size=(planted, d))
+                            / np.sqrt(d))
+    return a, b
+
+
+def _np(x):
+    return x.numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _same_top2(got, want, rtol=RTOL):
+    """got/want: (d1, i1, d2). Indices identical, distances within rtol."""
+    d1g, i1g, d2g = (_np(x) for x in got)
+    d1w, i1w, d2w = (_np(x) for x in want)
+    np.testing.assert_array_equal(i1g, i1w)
+    np.testing.assert_allclose(d1g, d1w, rtol=rtol, atol=ATOL)
+    np.testing.assert_allclose(d2g, d2w, rtol=rtol, atol=ATOL)
+
+
+def test_sqdist_and_top2_ref(rng):
+    a, b = make_descs(rng, 64, 48, d=16, planted=0)
+    dj = np.asarray(jm.sqdist(jnp.asarray(a), jnp.asarray(b)))
+    dt = tm.sqdist(torch.tensor(a), torch.tensor(b)).numpy()
+    np.testing.assert_allclose(dt, dj, rtol=RTOL, atol=ATOL)
+    vj, ij = jm.top2_ref(jnp.asarray(dj))
+    vt, it = tm.top2_ref(torch.tensor(dj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("n", [512, 300])       # tiled and ragged N
+def test_match_pair_ref_masked(rng, n):
+    m = 256
+    a, b = make_descs(rng, m, n, planted=64)
+    mask_a = np.arange(m) < 200
+    mask_b = np.arange(n) < n - 12                 # masked B rows
+    ij, dj, okj = jm.match_pair_ref(jnp.asarray(a), jnp.asarray(mask_a),
+                                    jnp.asarray(b), jnp.asarray(mask_b), 0.8)
+    it, dt, okt = tm.match_pair_ref(torch.tensor(a), torch.tensor(mask_a),
+                                    torch.tensor(b), torch.tensor(mask_b), 0.8)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL,
+                               atol=ATOL)
+    assert okt[:64].all() and (it[:64].numpy() == np.arange(64)).all()
+    # the port's match_pair (kernel wrapper: plain version on CPU tensors)
+    iw, dw, okw = tm.match_pair(torch.tensor(a), torch.tensor(mask_a),
+                                torch.tensor(b), torch.tensor(mask_b), 0.8)
+    np.testing.assert_array_equal(okw.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(iw.numpy()[okw.numpy()],
+                                  np.asarray(ij)[np.asarray(okj)])
+
+
+def test_single_pair_kernel_vs_pallas_interpret(rng):
+    """K2: ``l2_top2_pallas`` (interpret mode) against the port's
+    ``l2_top2`` on CPU tensors, with masked B rows."""
+    m, n = 256, 512
+    a, b = make_descs(rng, m, n, planted=64)
+    mask_b = np.arange(n) < 500
+    want = jm.l2_top2_pallas(jnp.asarray(a), jnp.asarray(b),
+                             jnp.asarray(mask_b), tile_m=128, tile_n=128)
+    got = tm.l2_top2(torch.tensor(a), torch.tensor(b), torch.tensor(mask_b))
+    _same_top2(got, want)
+
+
+def _block_inputs(rng, B=3, N=256, D=256, valid=(256, 200, 230)):
+    desc = unit_rows(rng.normal(size=(B, N, D)))
+    noise = lambda: 0.01 * rng.normal(size=(40, D)) / np.sqrt(D)
+    desc[1, :40] = unit_rows(desc[0, :40] + noise())
+    desc[2, 10:50] = unit_rows(desc[1, :40] + noise())
+    mask = np.zeros((B, N), bool)
+    for i, v in enumerate(valid):
+        mask[i, :v] = True
+    pairs = np.asarray([[0, 1], [0, 2], [1, 2], [2, 0], [1, 2]], np.int32)
+    return desc, mask, pairs
+
+
+def test_block_kernel_vs_pallas_interpret(rng, monkeypatch):
+    """K1: ``l2_top2_block_pallas`` in f32 (interpret mode, HIGHEST
+    precision) against the port's ``l2_top2_block`` on CPU tensors."""
+    desc, mask, pairs = _block_inputs(rng)
+    want = jm.l2_top2_block_pallas(jnp.asarray(desc), jnp.asarray(mask),
+                                   jnp.asarray(pairs), 128, 128, False)
+    got = tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
+                           torch.tensor(pairs))
+    _same_top2(got, want)
+    # the plain version in small pair chunks gives the same answer
+    monkeypatch.setattr(tm, "_PLAIN_CHUNK", 2 * desc.shape[1] ** 2)
+    chunked = tm.l2_top2_block_plain(torch.tensor(desc), torch.tensor(mask),
+                                     torch.tensor(pairs))
+    _same_top2(chunked, got, rtol=0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_match_pair_block_vs_reference(rng, bf16):
+    """The stage's block matcher on the reference's plain path (bf16 rounds
+    the descriptors first, accumulation stays f32 in both)."""
+    desc, mask, pairs = _block_inputs(rng)
+    ij, dj, okj = jm.match_pair_block(jnp.asarray(desc), jnp.asarray(mask),
+                                      jnp.asarray(pairs), 0.8, False,
+                                      bf16=bf16)
+    it, dt, okt = tm.match_pair_block(torch.tensor(desc), torch.tensor(mask),
+                                      torch.tensor(pairs), 0.8, bf16=bf16)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL,
+                               atol=ATOL)
+    # planted correspondences are found: pair (0, 1) rows 0..39
+    assert okt[0, :40].all()
+    np.testing.assert_array_equal(it[0, :40].numpy(), np.arange(40))
+
+
+def test_exact_ties_lowest_index_wins(rng):
+    """Duplicate B rows give bit-equal distances: the lowest column wins,
+    d2 == d1, and the ratio test rejects the row — in the reference's
+    plain path, its Pallas kernel (ties across tiles) and the port."""
+    D, N = 256, 256
+    a = unit_rows(rng.normal(size=(128, D)))
+    b = unit_rows(rng.normal(size=(N, D)))
+    b[5] = a[0] + 0.01
+    b[200] = b[5]                         # tie across 128-wide tiles
+    b[7] = a[1] + 0.01
+    b[9] = b[7]                           # tie inside one tile
+    mask_b = np.ones(N, bool)
+    want = jm.l2_top2_pallas(jnp.asarray(a), jnp.asarray(b),
+                             jnp.asarray(mask_b), tile_m=128, tile_n=128)
+    got = tm.l2_top2(torch.tensor(a), torch.tensor(b), torch.tensor(mask_b))
+    _same_top2(got, want)
+    d1, i1, d2 = (x.numpy() for x in got)
+    assert i1[0] == 5 and i1[1] == 7
+    assert d1[0] == d2[0] and d1[1] == d2[1]
+    ij, _, okj = jm.match_pair_ref(jnp.asarray(a), jnp.ones(128, bool),
+                                   jnp.asarray(b), jnp.asarray(mask_b), 0.8)
+    it, _, okt = tm.match_pair_ref(torch.tensor(a), torch.ones(128, dtype=bool),
+                                   torch.tensor(b), torch.tensor(mask_b), 0.8)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    assert not okt[0] and not okt[1] and not bool(okj[0])
+    # block form: pair table with the same image twice
+    desc = np.stack([np.pad(a, ((0, N - 128), (0, 0))), b])
+    mask = np.stack([np.arange(N) < 128, mask_b])
+    pairs = np.asarray([[0, 1]], np.int32)
+    wantb = jm.l2_top2_block_pallas(jnp.asarray(desc), jnp.asarray(mask),
+                                    jnp.asarray(pairs), 128, 128, False)
+    gotb = tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
+                            torch.tensor(pairs))
+    # rows 128.. of image 0 are zero padding: every distance there is |b|^2
+    # = 1 up to rounding, a near-tie with no defined winner
+    _same_top2([t[:, :128] for t in gotb], [t[:, :128] for t in wantb])
+    assert gotb[1][0, 0] == 5 and gotb[1][0, 1] == 7
+
+
+def test_mutual_filter(rng):
+    a, b = make_descs(rng, 64, 64, planted=32)
+    ones = np.ones(64, bool)
+    iab, _, okab = jm.match_pair_ref(jnp.asarray(a), jnp.asarray(ones),
+                                     jnp.asarray(b), jnp.asarray(ones), 0.9)
+    iba, _, okba = jm.match_pair_ref(jnp.asarray(b), jnp.asarray(ones),
+                                     jnp.asarray(a), jnp.asarray(ones), 0.9)
+    want = np.asarray(jm.mutual_filter(iab, okab, iba, okba))
+    got = tm.mutual_filter(torch.tensor(np.asarray(iab)),
+                           torch.tensor(np.asarray(okab)),
+                           torch.tensor(np.asarray(iba)),
+                           torch.tensor(np.asarray(okba)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert want[:32].all()
+
+
+def test_wrappers_take_plain_version_only_on_cpu(rng):
+    """A CPU tensor runs the plain version and counts no kernel launch."""
+    desc, mask, pairs = _block_inputs(rng)
+    before = dict(tm.LAUNCHES)
+    tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
+                     torch.tensor(pairs))
+    tm.l2_top2(torch.tensor(desc[0]), torch.tensor(desc[1]),
+               torch.tensor(mask[1]))
+    assert tm.LAUNCHES == before
