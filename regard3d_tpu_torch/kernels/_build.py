@@ -65,6 +65,23 @@ def build(source: str) -> str:
     return out
 
 
+def hmma_counts(lib_path: str) -> Dict[str, int]:
+    """Tensor-core instructions (HMMA) per instance of the bf16 matcher
+    kernel in a built library, keyed by its template arguments
+    (``"<mode>,<D or 0>"``), from the SASS that ``cuobjdump`` prints."""
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                       text=True, timeout=300, check=True)
+    out = {}
+    for part in r.stdout.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "l2_top2_mma_kernel" in name:
+            args = name.split("l2_top2_mma_kernelI", 1)[1].split("EEE", 1)[0]
+            mode, dc = (a.lstrip("Li") for a in args.split("E"))
+            out[f"{mode},{dc}"] = part.count("HMMA")
+    return out
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<source>``, built first if needed."""
     lib = _LIBS.get(source)

@@ -2,15 +2,25 @@
 
 Counterpart of ``regard3d_tpu/kernels/match.py``. The reference's two Pallas
 TPU kernels (``l2_top2_block_pallas`` for a block of pairs, ``l2_top2_pallas``
-for one pair) are served by one hand-written CUDA kernel,
-``csrc/match_top2.cu``, built with nvcc at first use and called through a
-plain C interface. Beside it, :func:`l2_top2_block_plain` computes the same
-function the way the reference's CPU path does (``sqdist`` + masked top-2 by
-argmin-then-mask): the CPU tests use it and ``chip_smoke.py`` holds the
-kernel against it on the card.
+for one pair) and the ablated kernel of its matcher profile
+(``tools/profile_matcher.py:_ablated_block``) are served by one hand-written
+CUDA source, ``csrc/match_top2.cu``, built with nvcc at first use and called
+through a plain C interface: an f32 FFMA kernel, a bf16 tensor-core kernel
+with three epilogue modes, and a merge kernel for calls split over column
+ranges. Beside them, the ``*_plain`` functions compute the same functions
+the way the reference's CPU path does (``sqdist`` + masked top-2 by
+argmin-then-mask): the CPU tests use them and ``chip_smoke.py`` holds the
+kernels against them on the card.
 
 The wrappers pick by tensor device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (or raises); there is no fallback.
+
+``bf16=True`` has the Pallas kernels' meaning: the descriptors come in as
+f32, ``|b|^2`` is summed from the f32 values, the operands of the product
+are rounded to bf16 (products exact, f32 accumulation), and ``|a|^2`` is
+taken from the rounded A rows. A bf16 tensor passed without the flag is
+legal too: the kernel then sees values that were rounded already, and
+``|b|^2`` comes from those.
 
 Matching contract (OpenMVG ``DistanceRatioMatch``): for each query
 descriptor a in image I, find its two nearest neighbours in image J under
@@ -20,6 +30,7 @@ squared L2; keep (a, nn1) iff d1 < ratio^2 * d2. Ties go to the lowest index.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -27,11 +38,25 @@ import torch
 _BIG = float(3.0e38)
 _SOURCE = "match_top2.cu"
 
-# launches of the CUDA kernel, per wrapper and input dtype (plain integers;
-# reset by callers that want to show a run went through the kernel)
-LAUNCHES: Dict[str, int] = {f"{w}_{t}": 0
-                            for w in ("l2_top2_block", "l2_top2")
-                            for t in ("f32", "bf16")}
+# the kernels' block tile: 128 rows of A by 128 columns (rows of B); the
+# ablation ``mm_only`` reads the first column of every column tile
+TILE_M = TILE_N = 128
+# largest D of the bf16 kernel: its three 128 x D bf16 tiles and 1 KB of
+# |b|^2 fit in 227 KB of shared memory
+MAX_BF16_DIM = 288
+
+ABLATIONS = ("mm_only", "min_only")
+_MODE = {"full": 0, "mm_only": 1, "min_only": 2}
+
+# launches of the CUDA kernels, per wrapper and operand dtype (plain
+# integers; reset by callers that want to show a run went through the
+# kernel). A call split over column ranges counts once: its merge kernel is
+# part of the same C call.
+LAUNCHES: Dict[str, int] = {
+    **{f"{w}_{t}": 0 for w in ("l2_top2_block", "l2_top2")
+       for t in ("f32", "bf16")},
+    **{f"l2_top2_block_{m}_bf16": 0 for m in ABLATIONS},
+}
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -74,34 +99,75 @@ def match_pair_ref(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8):
     return idx1, d1, ok
 
 
-_PLAIN_CHUNK = 1 << 28      # distances per chunk of the plain block version
+def _operands(desc, bf16: bool):
+    """The values the product sees: f32, rounded to bf16 first if asked."""
+    return desc.to(torch.bfloat16).float() if bf16 else desc.float()
 
 
-def l2_top2_block_plain(desc, mask, pairs):
-    """Plain version of the block kernel. desc: (B, N, D) f32 or bf16;
+def _top2_plain(a, b, bnorm, bf16):
+    """(d1, i1, d2) over the last two dims: a (..., M, D), b (..., N, D),
+    bnorm (..., N) = |b|^2 of the f32 values with 3e38 on masked rows."""
+    ar, br = _operands(a, bf16), _operands(b, bf16)
+    aa = torch.sum(ar * ar, -1, keepdim=True)
+    d = torch.clamp_min(aa + bnorm.unsqueeze(-2) - 2.0 * (ar @ br.transpose(
+        -1, -2)), 0.0)
+    d = torch.where((bnorm < _BIG).unsqueeze(-2), d, _BIG)
+    vals, i1 = top2_ref(d)
+    return vals[..., 0], i1.to(torch.int32), vals[..., 1]
+
+
+_PLAIN_CHUNK = 1 << 28      # distances per chunk of the plain block versions
+
+
+def _pair_chunks(desc, pairs):
+    """(pairs as long, chunk) so one chunk's (chunk, N, N) tensor holds
+    about ``_PLAIN_CHUNK`` distances."""
+    pairs = pairs.to(desc.device, torch.long)
+    N = desc.shape[1]
+    return pairs, max(1, _PLAIN_CHUNK // max(N * N, 1))
+
+
+def l2_top2_block_plain(desc, mask, pairs, bf16: bool = False):
+    """Plain version of the block kernel (K1). desc: (B, N, D) f32 or bf16;
     mask: (B, N) bool; pairs: (P, 2) int. Returns (d1, i1, d2), each (P, N).
     Pairs are processed in chunks so the (chunk, N, N) distance tensor stays
-    bounded (about ``_PLAIN_CHUNK`` distances a chunk)."""
-    pairs = pairs.to(desc.device, torch.long)
-    P, N = pairs.shape[0], desc.shape[1]
-    chunk = max(1, _PLAIN_CHUNK // max(N * N, 1))
-    outs = []
-    for s in range(0, P, chunk):
-        pr = pairs[s:s + chunk]
-        d = sqdist(desc[pr[:, 0]].float(), desc[pr[:, 1]].float())
-        d = torch.where(mask[pr[:, 1]][:, None, :], d, _BIG)
-        vals, i1 = top2_ref(d)
-        outs.append((vals[..., 0], i1.to(torch.int32), vals[..., 1]))
+    bounded."""
+    pairs, chunk = _pair_chunks(desc, pairs)
+    bn = _bnorm(desc, mask)
+    outs = [_top2_plain(desc[pr[:, 0]], desc[pr[:, 1]], bn[pr[:, 1]], bf16)
+            for pr in pairs.split(chunk)]
     return tuple(torch.cat([o[k] for o in outs]) for k in range(3))
 
 
-def l2_top2_plain(desc_a, desc_b, mask_b):
-    """Plain version of the single-pair kernel: (M, D) x (N, D) with mask_b
-    (N,). Returns (d1, i1, d2), each (M,)."""
-    d = sqdist(desc_a.float(), desc_b.float())
-    d = torch.where(mask_b[None, :], d, _BIG)
-    vals, i1 = top2_ref(d)
-    return vals[:, 0], i1.to(torch.int32), vals[:, 1]
+def l2_top2_plain(desc_a, desc_b, mask_b, bf16: bool = False):
+    """Plain version of the single-pair kernel (K2): (M, D) x (N, D) with
+    mask_b (N,). Returns (d1, i1, d2), each (M,)."""
+    return _top2_plain(desc_a, desc_b, _bnorm(desc_b, mask_b), bf16)
+
+
+def l2_top2_block_ablated_plain(desc, mask, pairs, mode: str,
+                                tile_n: int = TILE_N):
+    """Plain version of the ablated block kernel (K3, bf16 operands, f32
+    accumulation, |b|^2 from the f32 values). ``mm_only``: per row, the min
+    of a.b over the first column of every ``tile_n``-wide column tile (no
+    |b|^2, no mask); ``min_only``: the min over all columns of
+    |b|^2 - 2 a.b (3e38 on masked columns, no |a|^2, no clamp). Both start
+    from 3e38, as the kernel's accumulator does. Returns d1 (P, N)."""
+    if mode not in ABLATIONS:
+        raise ValueError(f"mode must be one of {ABLATIONS}, got {mode!r}")
+    pairs, chunk = _pair_chunks(desc, pairs)
+    bn = _bnorm(desc, mask)
+    r = _operands(desc, True)
+    outs = []
+    for pr in pairs.split(chunk):
+        a, b = r[pr[:, 0]], r[pr[:, 1]]
+        if mode == "mm_only":
+            v = (a @ b[:, ::tile_n].transpose(-1, -2)).amin(-1)
+        else:
+            v = (bn[pr[:, 1]].unsqueeze(-2)
+                 - 2.0 * (a @ b.transpose(-1, -2))).amin(-1)
+        outs.append(torch.clamp_max(v, _BIG))
+    return torch.cat(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -114,9 +180,36 @@ def _lib():
     fn = lib.r3d_l2_top2
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _single_pair(index: int) -> torch.Tensor:
+    """The pair table (0, 0) of a single-pair call, kept on the card."""
+    return torch.zeros((1, 2), dtype=torch.int32,
+                       device=torch.device("cuda", index))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def column_splits(P: int, M: int, N: int, sms: int) -> int:
+    """Column ranges of one call: 1 when its ceil(M/128)·P blocks give at
+    least two per SM, else enough ranges of whole 128-column tiles to come
+    near that (no range empty)."""
+    blocks, ntiles = _cdiv(M, TILE_M) * P, _cdiv(N, TILE_N)
+    if blocks >= 2 * sms:
+        return 1
+    per = _cdiv(ntiles, min(ntiles, _cdiv(2 * sms, blocks)))
+    return _cdiv(ntiles, per)
 
 
 def _check_desc(name, t):
@@ -128,76 +221,113 @@ def _check_desc(name, t):
         raise ValueError(f"{name} must be a contiguous (B, N, D) tensor")
     if t.shape[2] % 16 or t.shape[2] == 0:
         raise ValueError(f"{name}: D={t.shape[2]} must be a multiple of 16")
+    if t.dtype == torch.bfloat16 and t.shape[2] > MAX_BF16_DIM:
+        raise ValueError(f"{name}: the bf16 kernel takes D <= "
+                         f"{MAX_BF16_DIM}, got {t.shape[2]}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch(desc_a, desc_b, bnorm, pairs):
-    """One kernel launch: rows of desc_a[pairs[:, 0]] against
-    desc_b[pairs[:, 1]]. Returns (d1, i1, d2), each (P, M)."""
+def _launch(desc_a, desc_b, bnorm, pairs, mode: str = "full"):
+    """One kernel call: rows of desc_a[pairs[:, 0]] against
+    desc_b[pairs[:, 1]]; ``pairs=None`` is the single pair (0, 0). Returns
+    (d1, i1, d2), each (P, M); the ablation modes fill only d1."""
     _check_desc("desc_a", desc_a)
     _check_desc("desc_b", desc_b)
     if desc_a.dtype != desc_b.dtype or desc_a.device != desc_b.device:
         raise ValueError("desc_a and desc_b must share dtype and device")
     if desc_a.shape[2] != desc_b.shape[2]:
         raise ValueError("descriptor widths differ")
+    if mode != "full" and desc_a.dtype != torch.bfloat16:
+        raise TypeError(f"mode {mode!r} runs on bfloat16 operands")
     dev = desc_a.device
     Ba, M, D = desc_a.shape
     Bb, N, _ = desc_b.shape
-    pairs_h = pairs.detach().to("cpu", torch.int32).contiguous()
-    if pairs_h.dim() != 2 or pairs_h.shape[1] != 2 or pairs_h.shape[0] == 0:
-        raise ValueError("pairs must be a non-empty (P, 2) table")
-    if (pairs_h.min() < 0 or pairs_h[:, 0].max() >= Ba
-            or pairs_h[:, 1].max() >= Bb):
-        raise IndexError("pair index out of range")
+    if pairs is None:
+        pairs_d = _single_pair(dev.index)
+    else:
+        pairs_h = pairs.detach().to("cpu", torch.int32).contiguous()
+        if (pairs_h.dim() != 2 or pairs_h.shape[1] != 2
+                or pairs_h.shape[0] == 0):
+            raise ValueError("pairs must be a non-empty (P, 2) table")
+        if (pairs_h.min() < 0 or pairs_h[:, 0].max() >= Ba
+                or pairs_h[:, 1].max() >= Bb):
+            raise IndexError("pair index out of range")
+        pairs_d = pairs_h.to(dev)
     if bnorm.shape != (Bb, N) or bnorm.dtype != torch.float32 \
             or bnorm.device != dev or not bnorm.is_contiguous():
         raise ValueError("bnorm must be a contiguous (B, N) float32 tensor "
                          "on the descriptors' device")
-    P = pairs_h.shape[0]
-    pairs_d = pairs_h.to(dev)
+    P = pairs_d.shape[0]
+    splits = 1
+    if mode == "full":
+        splits = column_splits(P, M, N, _sm_count(dev.index))
     d1 = torch.empty((P, M), dtype=torch.float32, device=dev)
     i1 = torch.empty((P, M), dtype=torch.int32, device=dev)
     d2 = torch.empty((P, M), dtype=torch.float32, device=dev)
+    part = (torch.empty(((3 * splits + 1) * P * M,), dtype=torch.float32,
+                        device=dev) if splits > 1 else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(0 if desc_a.dtype == torch.float32 else 1,
+    err = _lib()(0 if desc_a.dtype == torch.float32 else 1, _MODE[mode],
                  desc_a.data_ptr(), desc_b.data_ptr(), bnorm.data_ptr(),
-                 pairs_d.data_ptr(), P, M, N, D,
-                 d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), stream)
+                 pairs_d.data_ptr(), P, M, N, D, splits,
+                 d1.data_ptr(), i1.data_ptr(), d2.data_ptr(),
+                 None if part is None else part.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"l2_top2 CUDA kernel launch failed (cudaError {err})")
     return d1, i1, d2
 
 
 def _bnorm(desc, mask):
-    """|b|^2 per row with 3e38 on masked rows (from the values the kernel
-    sees, i.e. after any bf16 rounding)."""
+    """|b|^2 per row with 3e38 on masked rows, from the descriptors as given
+    (f32 values; already-rounded values for a bf16 tensor)."""
     return torch.where(mask, torch.sum(desc.float() ** 2, -1),
                        _BIG).contiguous()
 
 
-def l2_top2_block(desc, mask, pairs):
+def _kernel_operands(desc, bf16):
+    return (desc.to(torch.bfloat16) if bf16 else desc).contiguous()
+
+
+def l2_top2_block(desc, mask, pairs, bf16: bool = False):
     """Fused two-NN search for a BLOCK of pairs (K1). desc: (B, N, D) f32 or
     bf16; mask: (B, N) bool; pairs: (P, 2) int. Returns (d1, i1, d2), each
-    (P, N). CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    (P, N). ``bf16``: see the module docstring. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if not desc.is_cuda:
-        return l2_top2_block_plain(desc, mask, pairs)
-    out = _launch(desc, desc, _bnorm(desc, mask), pairs)
-    LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[desc.dtype]}"] += 1
+        return l2_top2_block_plain(desc, mask, pairs, bf16)
+    ops = _kernel_operands(desc, bf16)
+    out = _launch(ops, ops, _bnorm(desc, mask), pairs)
+    LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[ops.dtype]}"] += 1
     return out
 
 
-def l2_top2(desc_a, desc_b, mask_b):
+def l2_top2(desc_a, desc_b, mask_b, bf16: bool = False):
     """Fused two-NN search for one pair (K2): desc_a (M, D), desc_b (N, D),
     mask_b (N,). Returns (d1, i1, d2), each (M,)."""
     if not desc_a.is_cuda:
-        return l2_top2_plain(desc_a, desc_b, mask_b)
-    pairs = torch.zeros((1, 2), dtype=torch.int32)
-    d1, i1, d2 = _launch(desc_a[None].contiguous(), desc_b[None].contiguous(),
-                         _bnorm(desc_b, mask_b)[None].contiguous(), pairs)
-    LAUNCHES[f"l2_top2_{_DTYPE_TAG[desc_a.dtype]}"] += 1
+        return l2_top2_plain(desc_a, desc_b, mask_b, bf16)
+    a, b = _kernel_operands(desc_a, bf16), _kernel_operands(desc_b, bf16)
+    d1, i1, d2 = _launch(a[None], b[None], _bnorm(desc_b, mask_b)[None],
+                         None)
+    LAUNCHES[f"l2_top2_{_DTYPE_TAG[a.dtype]}"] += 1
     return d1[0], i1[0], d2[0]
+
+
+def l2_top2_block_ablated(desc, mask, pairs, mode: str):
+    """K1's bf16 kernel with the top-2 merge ablated (K3, the matcher
+    profile's ``mm_only`` / ``min_only``). desc: (B, N, D); the operands are
+    rounded to bf16 and |b|^2 comes from the values as given. Returns d1
+    (P, N). CPU tensors take the plain version at the kernel's column-tile
+    width."""
+    if mode not in ABLATIONS:
+        raise ValueError(f"mode must be one of {ABLATIONS}, got {mode!r}")
+    if not desc.is_cuda:
+        return l2_top2_block_ablated_plain(desc, mask, pairs, mode, TILE_N)
+    ops = _kernel_operands(desc, True)
+    d1, _, _ = _launch(ops, ops, _bnorm(desc, mask), pairs, mode)
+    LAUNCHES[f"l2_top2_block_{mode}_bf16"] += 1
+    return d1
 
 
 # ---------------------------------------------------------------------------
@@ -233,15 +363,12 @@ def match_pair_block(desc, mask, pairs, ratio: float = 0.8,
                      use_kernel: bool = True, bf16: bool = False):
     """Match a block of image pairs in one dispatch. desc: (B, N, D) padded
     descriptors; mask: (B, N); pairs: (P, 2) int image indices.
-    Returns (idx (P, N), d1, ok). ``bf16`` rounds the descriptors to bf16
-    first (the fast presets; distances still accumulate in f32)."""
+    Returns (idx (P, N), d1, ok). ``bf16`` is the fast presets' flag,
+    passed through with the f32 descriptors (the product's operands are
+    rounded to bf16, distances accumulate in f32, |b|^2 comes from f32)."""
     pairs_l = pairs.to(desc.device, torch.long)
     ma = mask[pairs_l[:, 0]]
-    if bf16:
-        desc = desc.to(torch.bfloat16)
-    if use_kernel:
-        d1, i1, d2 = l2_top2_block(desc, mask, pairs)
-    else:
-        d1, i1, d2 = l2_top2_block_plain(desc, mask, pairs)
+    top2 = l2_top2_block if use_kernel else l2_top2_block_plain
+    d1, i1, d2 = top2(desc, mask, pairs, bf16)
     ok = ma & (d1 < (ratio * ratio) * d2) & (d1 < 1e30)
     return i1, d1, ok

@@ -169,12 +169,15 @@ def adjacency_svg(path: str, n: int,
 
 
 def _match_block(desc, mask, parr, cfg: MatchConfig, bf16: bool):
+    """One pair block: f32 descriptors and the preset's bf16 flag go to the
+    matcher, which rounds the product's operands itself."""
     idx, _, ok = match_mod.match_pair_block(desc, mask, parr, cfg.ratio,
-                                            True, bf16)
+                                            True, bf16=bf16)
     if cfg.mutual:
         rev = parr.flip(-1)
         idx_b, _, ok_b = match_mod.match_pair_block(desc, mask, rev,
-                                                    cfg.ratio, True, bf16)
+                                                    cfg.ratio, True,
+                                                    bf16=bf16)
         ok = match_mod.mutual_filter(idx, ok, idx_b, ok_b)
     return idx, ok
 

@@ -38,6 +38,7 @@ from jax.sharding import NamedSharding, PartitionSpec
 
 from regard3d_tpu.dist import mesh as jmesh
 from regard3d_tpu.kernels import geometry as jg
+from regard3d_tpu.kernels import match as jm
 from regard3d_tpu.kernels import ransac as jr
 from regard3d_tpu.pipeline import compute_matches as jcm
 from regard3d_tpu.pipeline import features as jfeat
@@ -573,17 +574,45 @@ def test_stage_matching_and_filter_on_reference_features(stage, e_solvers):
     assert stats["pairs_putative"] == N_VIEWS * (N_VIEWS - 1) // 2
 
 
+def kernel_route_matches(descs, cfg):
+    """The reference's putative matches on its Pallas kernel route (the
+    route ``match_all_pairs`` takes on its chip), block by block in
+    interpret mode: blocks of 64 pairs padded with the last pair,
+    ``match_pair_block(..., use_pallas=True, tile_m, tile_n, bf16)``."""
+    assert not cfg.mutual
+    B, N, _ = descs.data.shape
+    pairs = jcm.exhaustive_pairs(B)
+    tile_m, tile_n = jm._auto_tiles(N, N)
+    bf16 = jcm.matcher_knobs(cfg.matcher)["bf16"]
+    padded = pairs + [pairs[-1]] * ((-len(pairs)) % 64)
+    out = {}
+    for start in range(0, len(padded), 64):
+        chunk = padded[start:start + 64]
+        idx, _, ok = jm.match_pair_block(
+            descs.data, descs.mask, jnp.asarray(np.asarray(chunk, np.int32)),
+            cfg.ratio, True, tile_m, tile_n, bf16=bf16)
+        idx, ok = np.asarray(idx), np.asarray(ok)
+        for bi, pr in enumerate(chunk[:len(pairs) - start]):
+            ia = np.where(ok[bi])[0]
+            out[pr] = np.stack([ia, idx[bi][ia]], -1).astype(np.int64)
+    return out
+
+
 @pytest.mark.parametrize("matcher,mutual", [("brute-force", True),
                                             ("hnsw-fast", False)])
 def test_matcher_presets_on_reference_features(stage, matcher, mutual):
     """The mutual check and a bf16 (ANN) preset on the reference's feature
-    files: the port's putative matches equal the reference's."""
+    files: the port's putative matches equal the reference's (for the bf16
+    preset, those of its kernel route)."""
     ref = stage["ref"]
     kj, dj = jfeat.load_all_padded(ref, N_VIEWS, pad_to=256)
     kt, dt = tfeat.load_all_padded(ref, N_VIEWS, pad_to=256,
                                    padded_dim=tcm.MATCH_DIM, device="cpu")
-    want = jcm.match_all_pairs(kj, dj, jcm.MatchConfig(matcher=matcher,
-                                                       mutual=mutual))
+    jcfg = jcm.MatchConfig(matcher=matcher, mutual=mutual)
+    if jcm.matcher_knobs(matcher)["bf16"]:
+        want = kernel_route_matches(dj, jcfg)
+    else:
+        want = jcm.match_all_pairs(kj, dj, jcfg)
     got = tcm.match_all_pairs(kt, dt, tcm.MatchConfig(matcher=matcher,
                                                       mutual=mutual))
     assert got.keys() == want.keys()

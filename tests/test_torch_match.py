@@ -15,6 +15,11 @@ cancellation leaves a few ulps of the norms, ~2e-7 each, in small
 distances).
 """
 
+import functools
+import importlib.util
+import os
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,12 +28,29 @@ import torch
 from regard3d_tpu.kernels import match as jm
 from regard3d_tpu_torch.kernels import match as tm
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # several pytest workers share the host: a small intra-op pool per worker
 # keeps torch from oversubscribing the cores
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
 RTOL = 1e-4
 ATOL = 1e-5
+
+
+@functools.lru_cache(maxsize=None)
+def profile_tool():
+    """The reference's matcher profile, ``tools/profile_matcher.py`` (a
+    script, not a package module), loaded from its file. Its import-time
+    ``runtime.setup()`` would repoint this process's compilation cache, so
+    it is stubbed while the module loads."""
+    spec = importlib.util.spec_from_file_location(
+        "reference_profile_matcher",
+        os.path.join(ROOT, "tools", "profile_matcher.py"))
+    mod = importlib.util.module_from_spec(spec)
+    with mock.patch("regard3d_tpu.runtime.setup"):
+        spec.loader.exec_module(mod)
+    return mod
 
 
 def unit_rows(x):
@@ -132,12 +154,14 @@ def test_block_kernel_vs_pallas_interpret(rng, monkeypatch):
 
 @pytest.mark.parametrize("bf16", [False, True])
 def test_match_pair_block_vs_reference(rng, bf16):
-    """The stage's block matcher on the reference's plain path (bf16 rounds
-    the descriptors first, accumulation stays f32 in both)."""
+    """The stage's block matcher against the reference: f32 on its plain
+    path, bf16 on its Pallas kernel route in interpret mode (the route the
+    reference runs on its chip: bf16 operands, |b|^2 from f32, f32
+    accumulation)."""
     desc, mask, pairs = _block_inputs(rng)
     ij, dj, okj = jm.match_pair_block(jnp.asarray(desc), jnp.asarray(mask),
-                                      jnp.asarray(pairs), 0.8, False,
-                                      bf16=bf16)
+                                      jnp.asarray(pairs), 0.8, bf16, 128,
+                                      128, bf16=bf16)
     it, dt, okt = tm.match_pair_block(torch.tensor(desc), torch.tensor(mask),
                                       torch.tensor(pairs), 0.8, bf16=bf16)
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
@@ -188,6 +212,85 @@ def test_exact_ties_lowest_index_wins(rng):
     assert gotb[1][0, 0] == 5 and gotb[1][0, 1] == 7
 
 
+@pytest.mark.parametrize("kernel", ["block", "single"])
+def test_bf16_kernels_vs_pallas_interpret(rng, kernel):
+    """K1 and K2 at ``bf16=True`` against ``l2_top2_block_pallas`` and
+    ``l2_top2_pallas`` in interpret mode, masked rows included: f32
+    descriptors in, bf16 operands, |b|^2 from the f32 values."""
+    desc, mask, pairs = _block_inputs(rng)
+    if kernel == "block":
+        want = jm.l2_top2_block_pallas(jnp.asarray(desc), jnp.asarray(mask),
+                                       jnp.asarray(pairs), 128, 128, True)
+        got = tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
+                               torch.tensor(pairs), bf16=True)
+    else:
+        want = jm.l2_top2_pallas(jnp.asarray(desc[0]), jnp.asarray(desc[1]),
+                                 jnp.asarray(mask[1]), tile_m=128,
+                                 tile_n=128, bf16=True)
+        got = tm.l2_top2(torch.tensor(desc[0]), torch.tensor(desc[1]),
+                         torch.tensor(mask[1]), bf16=True)
+    _same_top2(got, want)
+
+
+def _unit_random_block(seed=0, B=3, N=256, D=144):
+    """Random unit-norm rows (no planted matches, so near neighbours are
+    close calls) and a cyclic pair table."""
+    x = np.random.default_rng(seed).random((B, N, D)).astype(np.float32)
+    x = (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
+    return (x, np.ones((B, N), bool),
+            np.asarray([[0, 1], [1, 2], [2, 0]], np.int32))
+
+
+def test_bf16_bnorm_from_f32_matches_pallas_rounded_route_does_not():
+    """The bf16 repair: taking |b|^2 from the rounded descriptors (the
+    port's former route: round first, then hand the bf16 tensor over)
+    moves i1 on some of these rows and d1 by ~1e-3; with |b|^2 from the f32
+    values, as the Pallas kernel takes it, every row agrees."""
+    desc, mask, pairs = _unit_random_block()
+    want = jm.l2_top2_block_pallas(jnp.asarray(desc), jnp.asarray(mask),
+                                   jnp.asarray(pairs), 128, 128, True)
+    t = torch.tensor
+    _same_top2(tm.l2_top2_block(t(desc), t(mask), t(pairs), bf16=True),
+               want)
+    old = tm.l2_top2_block(t(desc).to(torch.bfloat16), t(mask), t(pairs))
+    moved = (old[1].numpy() != np.asarray(want[1])).sum()
+    assert moved >= 1, moved
+    assert np.abs(old[0].numpy() - np.asarray(want[0])).max() > 1e-4
+
+
+@pytest.mark.parametrize("mode", ["mm_only", "min_only"])
+@pytest.mark.parametrize("d", [144, 256])
+def test_ablated_block_vs_pallas_interpret(mode, d):
+    """K3: the port's ``l2_top2_block_ablated`` on CPU tensors against the
+    matcher profile's ``_ablated_block`` in interpret mode, at tile_n = 128
+    (the kernel's column tile). Tolerance rtol 1e-5 + atol 1e-5: both sides
+    sum exact bf16 products in f32, in different orders."""
+    desc, mask, pairs = _block_inputs(np.random.default_rng(1), D=d)
+    want = profile_tool()._ablated_block(jnp.asarray(desc), jnp.asarray(mask),
+                                         jnp.asarray(pairs), 128, 128, mode)
+    got = tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
+                                   torch.tensor(pairs), mode)
+    assert tm.TILE_N == 128 and got.shape == (len(pairs), desc.shape[1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("P,M,N,want", [
+    (64, 4096, 4096, 1),     # K1 on the main path: 2048 blocks
+    (1, 4000, 3001, 8),      # K2: 32 row tiles, 24 column tiles
+    (1, 100, 100, 1),        # one column tile: nothing to split
+    (4, 1000, 4096, 8),      # 32 blocks -> 256 (4 tiles a range)
+])
+def test_column_splits(P, M, N, want):
+    """Small grids are split over whole 128-column tiles until they reach
+    about two blocks per SM of a 132-SM card; no range is empty."""
+    s = tm.column_splits(P, M, N, 132)
+    assert s == want
+    ntiles = -(-N // 128)
+    per = -(-ntiles // s)
+    assert (s - 1) * per < ntiles <= s * per
+
+
 def test_mutual_filter(rng):
     a, b = make_descs(rng, 64, 64, planted=32)
     ones = np.ones(64, bool)
@@ -211,5 +314,11 @@ def test_wrappers_take_plain_version_only_on_cpu(rng):
     tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
                      torch.tensor(pairs))
     tm.l2_top2(torch.tensor(desc[0]), torch.tensor(desc[1]),
-               torch.tensor(mask[1]))
+               torch.tensor(mask[1]), bf16=True)
+    for mode in tm.ABLATIONS:
+        tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
+                                 torch.tensor(pairs), mode)
     assert tm.LAUNCHES == before
+    with pytest.raises(ValueError, match="mode"):
+        tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
+                                 torch.tensor(pairs), "full")
