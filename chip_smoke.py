@@ -39,9 +39,28 @@ run if it fails:
 (f) the matcher profile, ``regard3d_tpu_torch.tools.profile_matcher``, on
     the stage's descriptors (64 pairs): its JSON line, and its three
     kernels launched;
+(g) the triangulation stage at full width: ``regard3d_tpu_torch.pipeline.
+    triangulation_step.run_triangulation`` on phase (b)'s own match
+    directory (11 views at 1024x1024, 4096 keypoints; PINHOLE, one
+    intrinsic group with f at 1.03x the truth, ``TriangulationParams()``:
+    incremental2, MaxPair, intrinsics refined). Fails unless 11/11 cameras
+    are posed, the ATE after Sim3 alignment against the true centers is <=
+    0.08, the median residual < 1 px, ``scene.npz`` loads back,
+    ``sfm_data.json`` holds 11 extrinsics and one structure entry per live
+    track, both PLYs read back, and two ``bundle_adjust`` calls on the final
+    state give bit-identical states. Then the stage once more under
+    ``torch.profiler``: per engine span (``triangulation.<phase>``) the
+    host time, the device's busy time and idle share and the number of
+    device operations. One ``sfm`` JSON line;
+(h) the radial-K3 path: ``regard3d_tpu_torch.tools.accuracy.run_dataset(
+    "fountain_rk3")`` (320 px, 2048 keypoints, 2048 RANSAC iterations,
+    radial-K3 with zero-initialized distortion recovered by BA) must meet
+    the reference's gates; its row is printed beside ACCURACY.json's row
+    for the same dataset (an ``accuracy`` JSON line);
 (d) print the ``kernels`` JSON line (launches from the run of the path each
-    kernel lies on: (b), its flann run, or (f)), then the card's name and
-    power limit, and the final ``{"ok": true, ...}`` line.
+    kernel lies on: (b), its flann run, or (f); (g) and (h) launch no
+    kernel of their own), then the card's name and power limit, and the
+    final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -66,6 +85,8 @@ PEAK_BYTES = 3.35e12
 
 N_CAMS, HW, MAX_KP, PAIR_BLOCK = 11, 1024, 4096, 64
 PHASES = ("features", "matching", "filter")
+SFM_PHASES = ("init", "resection", "triangulation", "ba", "outlier")
+ATE_BOUND = 0.08                 # bench_accuracy.GATES
 
 
 def fail(msg: str):
@@ -558,6 +579,165 @@ def phase_profile(ds, workdir):
     log(json.dumps({"profile": rows, "stage_warm_s": warm["elapsed_s"]}))
 
 
+def run_sfm(ds, matches, out):
+    """The triangulation stage's main path at the smoke's shapes."""
+    from regard3d_tpu_torch.core.types import PINHOLE
+    from regard3d_tpu_torch.pipeline import triangulation_step as ts
+    intr = np.zeros((1, 9), np.float32)
+    intr[0, :3] = [1.03 * ds["f"], HW / 2.0, HW / 2.0]
+    return ts.run_triangulation(matches, out, ds["images"],
+                                intr_id=np.zeros(N_CAMS, np.int32),
+                                intr=intr,
+                                models=np.asarray([PINHOLE], np.int32),
+                                params=ts.TriangulationParams())
+
+
+def _spans(events, tag):
+    """CPU intervals of each ``tag.<name>`` span and the device operations
+    (start, end, name) of a profiler run's raw events."""
+    from torch.autograd import DeviceType
+    spans, device = collections.defaultdict(list), []
+    for e in events:
+        name = e.name()
+        if name.startswith(tag):
+            if e.device_type() == DeviceType.CPU:
+                spans[name[len(tag):]].append((e.start_ns(), e.end_ns()))
+        elif e.device_type() == DeviceType.CUDA:
+            device.append((e.start_ns(), e.end_ns(), name))
+    return spans, device
+
+
+def _bit_identical_ba(scene):
+    """Two bundle_adjust calls on the final scene: the same bits."""
+    from regard3d_tpu_torch.ba import lm
+    pm = scene.poses.mask
+    obs = scene.observations
+    g = scene.views.intrinsic_id.long()[obs.view_id.long()]
+    ba_obs = lm.BAObservations(
+        view_id=obs.view_id.long(), intr_id=g,
+        point_id=obs.landmark_id.long(),
+        model=scene.intrinsics.model.long()[g], xy=obs.xy,
+        weight=obs.mask.float())
+    state = lm.BAState(R=scene.poses.R, C=scene.poses.C,
+                       intr=scene.intrinsics.params, X=scene.landmarks.X)
+    fixed = ~pm.clone()
+    fixed[int(torch.nonzero(pm)[0])] = True
+    opts = lm.BAOptions(max_iterations=10, refine_intrinsics=True,
+                        huber_delta_px=2.0)
+    outs = [lm.bundle_adjust(state, ba_obs, opts, fixed_pose_mask=fixed)
+            for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
+    check(same, "two bundle_adjust calls on the same state differ")
+    check(outs[0][1] == outs[1][1], "two bundle_adjust calls: other stats")
+    return {"iterations": outs[0][1].iterations,
+            "initial_cost": outs[0][1].initial_cost,
+            "final_cost": outs[0][1].final_cost, "bit_identical": same}
+
+
+def phase_sfm(ds, matches, workdir):
+    """(g) the triangulation stage on phase (b)'s matches, its artifacts,
+    the determinism of BA, and where its time goes by engine span."""
+    from torch.profiler import ProfilerActivity, profile
+    from regard3d_tpu_torch.core import metrics
+    from regard3d_tpu_torch.core.sfm_data import load_npz
+    from regard3d_tpu_torch.export import ply
+
+    out = os.path.join(workdir, "sfm")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    stats = run_sfm(ds, matches, out)
+    elapsed = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    scene = load_npz(os.path.join(out, "scene.npz"))
+    pm = scene.poses.mask.numpy()
+    ate = metrics.ate_rmse(scene.poses.C.numpy()[pm],
+                           ds["Cs"][np.nonzero(pm)[0]])
+    with open(os.path.join(out, "sfm_data.json")) as fh:
+        sfm = json.load(fh)
+    clouds = {n: ply.read_ply(os.path.join(out, n)) for n in
+              ("cloud_and_poses.ply", "FinalColorized.ply")}
+    log(f"(g) {stats['num_cameras']}/{N_CAMS} cameras, "
+        f"{stats['num_tracks']} tracks, ATE {ate:.5f}, median residual "
+        f"{stats['residual_median']:.4f} px, {elapsed:.1f} s")
+    check(stats["num_cameras"] == N_CAMS,
+          f"{stats['num_cameras']} of {N_CAMS} cameras posed")
+    check(ate <= ATE_BOUND, f"ATE {ate:.4f} > {ATE_BOUND}")
+    check(stats["residual_median"] < 1.0,
+          f"median residual {stats['residual_median']:.3f} px")
+    check(len(sfm["extrinsics"]) == N_CAMS
+          and len(sfm["structure"]) == stats["num_tracks"]
+          and len(sfm["views"]) == N_CAMS,
+          f"sfm_data.json: {len(sfm['extrinsics'])} extrinsics, "
+          f"{len(sfm['structure'])} structure entries")
+    check(len(clouds["FinalColorized.ply"].xyz) == stats["num_tracks"]
+          and len(clouds["cloud_and_poses.ply"].xyz)
+          == stats["num_tracks"] + N_CAMS, "PLY vertex counts")
+    check(bool(np.isfinite(scene.landmarks.X.numpy()).all()),
+          "non-finite landmarks")
+    ba = _bit_identical_ba(scene)
+
+    # where the time goes: the stage again under the profiler
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = run_sfm(ds, matches, os.path.join(workdir, "sfm_prof"))
+    spans, device = _spans(prof.profiler.kineto_results.events(),
+                           "triangulation.")
+    device.sort()
+    starts = [o[0] for o in device]
+    import bisect
+    rows = []
+    for ph in SFM_PHASES:
+        check(ph in spans, f"no profiler span for engine phase {ph}")
+        ops = []
+        for lo, hi in spans[ph]:
+            ops += device[bisect.bisect_left(starts, lo):
+                          bisect.bisect_right(starts, hi)]
+        host = sum(hi - lo for lo, hi in spans[ph]) * 1e-9
+        busy = _busy_s([(a, b) for a, b, _ in ops])
+        top = collections.Counter()
+        for a, b, name in ops:
+            top[name[:80]] += (b - a) * 1e-9
+        rows.append({"phase": ph, "spans": len(spans[ph]), "host_s": host,
+                     "device_busy_s": busy,
+                     "idle_share": 1.0 - busy / host if host else None,
+                     "device_ops": len(ops),
+                     "top_kernels": [[k, v] for k, v in top.most_common(3)]})
+        log(f"(g) {ph}: {len(spans[ph])} spans, host {host:.3f} s, device "
+            f"busy {busy:.3f} s, {len(ops)} device ops")
+    check(sum(r["device_ops"] for r in rows) > 0,
+          "the triangulation stage ran nothing on the device")
+    check(again["num_cameras"] == N_CAMS, "profiled run: cameras")
+    log(json.dumps({"sfm": {
+        "cameras": stats["num_cameras"], "tracks": stats["num_tracks"],
+        "observations": stats["num_observations"], "ate": ate,
+        "rms_px": stats["rms_px"],
+        "residual_px": {k: stats[f"residual_{k}"]
+                        for k in ("min", "max", "mean", "median")},
+        "init_pair": stats["init_pair"], "profile": stats["profile"],
+        "elapsed_s": elapsed, "peak_device_gb": peak_gb,
+        "focal_est": float(scene.intrinsics.params[0, 0]),
+        "focal_gt": float(ds["f"]), "ba_repeat": ba,
+        "profiled_run": {"elapsed_s": again["elapsed_s"],
+                         "profile": again["profile"], "spans": rows}}}))
+
+
+def phase_accuracy():
+    """(h) the radial-K3 twin at the reference's accuracy settings, held to
+    the reference's gates and printed beside ACCURACY.json's row."""
+    from regard3d_tpu_torch.tools import accuracy
+    row = accuracy.run_dataset("fountain_rk3")
+    ref = None
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ACCURACY.json")
+    if os.path.exists(path):
+        with open(path) as fh:
+            ref = {r["dataset"]: r for r in json.load(fh)["results"]}.get(
+                "fountain_rk3")
+    log(json.dumps({"accuracy": {"port": row, "reference": ref}}))
+    bad = accuracy.gate_failures(row)
+    check(not bad, "; ".join(bad))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -591,6 +771,8 @@ def main():
         phase_profile(ds, work)
         paths["profile"] = phase_matcher_profile(descs.data, descs.mask,
                                                  parr)
+        phase_sfm(ds, out, work)
+    phase_accuracy()
     for row in rows:
         row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]
     log(f"total {time.time() - t0:.1f} s")

@@ -1,15 +1,16 @@
-"""Multi-view geometry solvers for the geometric filter (F / E / H).
+"""Multi-view geometry solvers (F / E / H, resection, triangulation).
 
-Counterpart of the F/E/H subset of ``regard3d_tpu/kernels/geometry.py``:
-Hartley normalization, the unrolled small linear algebra (Cholesky,
-shifted inverse iteration, analytic 3x3 eigen/SVD, pivoted LU), the 8-point
-F/E and 4-point H solvers, the Nistér 5-point E solver with Durand–Kerner
-root finding, and the F/H residuals. Same formulas, same constants, same
-batch layouts: solvers take a leading batch of samples (S, n, 2) -> (S, ...)
-and residual functions broadcast over leading dimensions.
-
-Resection (P3P, DLT), triangulation, E decomposition, Kabsch and the pose
-polish come with the SfM slice.
+Counterpart of ``regard3d_tpu/kernels/geometry.py``: Hartley normalization,
+the unrolled small linear algebra (Cholesky, shifted inverse iteration,
+analytic 3x3 eigen/SVD, pivoted LU), the 8-point F/E and 4-point H solvers,
+the Nistér 5-point E solver with Durand–Kerner root finding, the F/H
+residuals, and the SfM part: two-view and N-view triangulation, the
+cheirality-voting E decomposition, Kabsch, Grunert's P3P, the 6-point DLT
+resection, the normalized reprojection error and the Gauss-Newton pose
+polish. Same formulas, same constants, same batch layouts: solvers take a
+leading batch of samples (S, n, 2) -> (S, ...) and residual functions
+broadcast over leading dimensions. Dense solves use the ``_ex`` forms
+(no host synchronisation on the card).
 """
 
 from __future__ import annotations
@@ -645,3 +646,239 @@ def fit_essential_5pt(x1, x2):
     ok = real & (nrm > 1e-12) & torch.isfinite(E).all(-1).all(-1)
     E = E / torch.clamp_min(nrm, 1e-12)[..., None, None]
     return E, ok
+
+
+# ---------------------------------------------------------------------------
+# Essential decomposition & relative pose
+# ---------------------------------------------------------------------------
+
+def _rt_apply(R, v):
+    """R^T applied to rows: v (..., N, 3), R (..., 3, 3) -> (..., N, 3)."""
+    return v @ R
+
+
+def triangulate_2view(R1, C1, R2, C2, b1, b2):
+    """Linear two-view triangulation from unit bearings in camera frames
+    (x_cam = R (X - C)). b1, b2: (..., N, 3). Returns X: (..., N, 3)."""
+    d1 = _rt_apply(R1, b1)                           # world rays R^T b
+    d2 = _rt_apply(R2, b2)
+    eye = torch.eye(3, dtype=b1.dtype, device=b1.device)
+
+    def nmat(d):
+        return eye - d[..., :, None] * d[..., None, :]
+    A1 = nmat(d1)
+    A2 = nmat(d2)
+    A = A1 + A2
+    b = (A1 @ C1[..., None, :, None])[..., 0] + \
+        (A2 @ C2[..., None, :, None])[..., 0]
+    return solve3x3(A + 1e-12 * eye, b)
+
+
+def decompose_essential(E, x1, x2, mask=None):
+    """Four-way decomposition of E with cheirality voting.
+
+    E: (S, 3, 3); x1, x2: (S, N, 2) normalized camera coords; ``mask``
+    (S, N) optional — only masked points vote. Returns (R (S,3,3),
+    t (S,3), ngood (S,)): camera 2 with x_cam2 = R (X - C2), C1 = 0, and
+    t = -R C2 (unit norm)."""
+    U, _, Vt = svd3x3(E)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
+                     dtype=E.dtype, device=E.device)
+    Ra = U @ W @ Vt
+    Rb = U @ W.T @ Vt
+    t = U[..., :, 2]
+    b1 = to_h(x1)
+    b1 = b1 / torch.linalg.norm(b1, dim=-1, keepdim=True)
+    b2 = to_h(x2)
+    b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
+    eye = torch.eye(3, dtype=E.dtype, device=E.device).expand(Ra.shape)
+    C0 = torch.zeros_like(t)
+
+    def count_good(R, tt):
+        C2 = -(R.transpose(-1, -2) @ tt[..., None])[..., 0]
+        X = triangulate_2view(eye, C0, R, C2, b1, b2)
+        z1 = X[..., 2]
+        xc2 = (X - C2[..., None, :]) @ R.transpose(-1, -2)
+        good = (z1 > 0) & (xc2[..., 2] > 0)
+        if mask is not None:
+            good = good & mask
+        return good.sum(-1)
+
+    cands = [(Ra, t), (Ra, -t), (Rb, t), (Rb, -t)]
+    counts = torch.stack([count_good(R, tt) for R, tt in cands], -1)
+    best = torch.argmax(counts, -1)
+    Rs = torch.stack([c[0] for c in cands], -3)
+    ts = torch.stack([c[1] for c in cands], -2)
+    ar = torch.arange(E.shape[0], device=E.device)
+    return Rs[ar, best], ts[ar, best], counts[ar, best]
+
+
+def kabsch(Pw, Pc):
+    """Rigid transform world->camera from point pairs: (R, C) with
+    Pc ~ R (Pw - C). Pw, Pc: (S, n, 3) (n >= 3)."""
+    mw = Pw.mean(-2, keepdim=True)
+    mc = Pc.mean(-2, keepdim=True)
+    H = (Pc - mc).transpose(-1, -2) @ (Pw - mw)
+    U, _, Vt = svd3x3(H)
+    R = U @ Vt                      # proper rotation by construction
+    C = mw[:, 0] - (R.transpose(-1, -2) @ mc[:, 0, :, None])[..., 0]
+    return R, C
+
+
+# ---------------------------------------------------------------------------
+# P3P (Grunert's quartic), DLT resection
+# ---------------------------------------------------------------------------
+
+def p3p_grunert(X, x):
+    """Poses from 3 world points + 3 normalized image points.
+
+    X: (S, 3, 3) world points; x: (S, 3, 2) normalized camera coords.
+    Returns (R (S, 4, 3, 3), C (S, 4, 3), ok (S, 4)): up to 4 solutions per
+    sample (Grunert's law-of-cosines quartic, Durand–Kerner roots)."""
+    S = X.shape[0]
+    f = to_h(x)
+    f = f / torch.linalg.norm(f, dim=-1, keepdim=True)   # (S, 3, 3) bearings
+    P1, P2, P3 = X[:, 0], X[:, 1], X[:, 2]
+    a2 = torch.sum((P2 - P3) ** 2, -1)
+    b2 = torch.sum((P1 - P3) ** 2, -1)
+    c2 = torch.sum((P1 - P2) ** 2, -1)
+    b2s = torch.clamp_min(b2, 1e-20)
+    ca = torch.sum(f[:, 1] * f[:, 2], -1)                # cos(alpha)
+    cb = torch.sum(f[:, 0] * f[:, 2], -1)                # cos(beta)
+    cg = torch.sum(f[:, 0] * f[:, 1], -1)                # cos(gamma)
+
+    p = (a2 - c2) / b2s
+    q = (a2 + c2) / b2s
+    A4 = (p - 1.0) ** 2 - 4.0 * (c2 / b2s) * ca ** 2
+    A3 = 4.0 * (p * (1.0 - p) * cb - (1.0 - q) * ca * cg
+                + 2.0 * (c2 / b2s) * ca ** 2 * cb)
+    A2 = 2.0 * (p ** 2 - 1.0 + 2.0 * p ** 2 * cb ** 2
+                + 2.0 * ((b2 - c2) / b2s) * ca ** 2
+                - 4.0 * q * ca * cb * cg
+                + 2.0 * ((b2 - a2) / b2s) * cg ** 2)
+    A1 = 4.0 * (-p * (1.0 + p) * cb + 2.0 * (a2 / b2s) * cg ** 2 * cb
+                - (1.0 - q) * ca * cg)
+    A0 = (1.0 + p) ** 2 - 4.0 * (a2 / b2s) * cg ** 2
+
+    coeffs = torch.stack([A0, A1, A2, A3, A4], -1)        # ascending
+    roots = poly_roots(coeffs)                            # (S, 4) complex
+    v = roots.real
+    real = roots.imag.abs() < 1e-3 * (1.0 + v.abs())
+    # Newton polish in real arithmetic (f32 quartics are ill-conditioned)
+    for _ in range(3):
+        qv = (((A4[:, None] * v + A3[:, None]) * v + A2[:, None]) * v
+              + A1[:, None]) * v + A0[:, None]
+        dq = ((4.0 * A4[:, None] * v + 3.0 * A3[:, None]) * v
+              + 2.0 * A2[:, None]) * v + A1[:, None]
+        v = v - qv / _safe_den(dq, 1e-12)
+
+    den_u = _safe_den(2.0 * (cg[:, None] - v * ca[:, None]), 1e-12)
+    u = ((-1.0 + p[:, None]) * v ** 2
+         - 2.0 * p[:, None] * cb[:, None] * v + 1.0 + p[:, None]) / den_u
+    s1sq = b2s[:, None] / torch.clamp_min(
+        1.0 + v ** 2 - 2.0 * v * cb[:, None], 1e-12)
+    ok = real & (s1sq > 0) & (u > 0) & (v > 0)
+    s1 = torch.sqrt(torch.clamp_min(s1sq, 0.0))
+    s2 = u * s1
+    s3 = v * s1
+
+    Pc = torch.stack([s1[..., None] * f[:, None, 0],
+                      s2[..., None] * f[:, None, 1],
+                      s3[..., None] * f[:, None, 2]], -2)  # (S, 4, 3pts, 3)
+    Pw = X[:, None].expand(Pc.shape)
+    R, C = kabsch(Pw.reshape(-1, 3, 3), Pc.reshape(-1, 3, 3))
+    R = R.reshape(S, 4, 3, 3)
+    C = C.reshape(S, 4, 3)
+    ok = ok & torch.isfinite(R).all(-1).all(-1) & torch.isfinite(C).all(-1)
+    return R, C, ok
+
+
+def resection_dlt(X, x):
+    """Camera pose from 3D-2D correspondences in normalized camera coords.
+    X: (S, n>=6, 3); x: (S, n, 2). Returns (R (S,3,3), C (S,3), ok (S,))."""
+    from regard3d_tpu_torch.core import cameras
+    u, v = x[..., 0], x[..., 1]
+    o = torch.ones_like(u)
+    Xh = torch.cat([X, o[..., None]], -1)              # (S, n, 4)
+    z = torch.zeros_like(Xh)
+    r1 = torch.cat([Xh, z, -u[..., None] * Xh], -1)
+    r2 = torch.cat([z, Xh, -v[..., None] * Xh], -1)
+    A = torch.cat([r1, r2], -2)                        # (S, 2n, 12)
+    P = _smallest_singular_vector(A).reshape(-1, 3, 4)
+    M = P[..., :3]
+    depths = (X @ M[..., 2, :, None])[..., 0] + P[..., 2, 3][..., None]
+    sign = torch.where(torch.sign(depths).sum(-1) >= 0, 1.0, -1.0)
+    P = P * sign[..., None, None]
+    M = P[..., :3]
+    scale = torch.clamp_min(_det3(M).abs(), 1e-20) ** (1.0 / 3.0)
+    M = M / scale[..., None, None]
+    tvec = P[..., 3] / scale[..., None]
+    R = cameras.project_so3(M)
+    C = -(R.transpose(-1, -2) @ tvec[..., None])[..., 0]
+    ok = torch.isfinite(R).all(-1).all(-1) & torch.isfinite(C).all(-1)
+    return R, C, ok
+
+
+def reprojection_err_normalized(R, C, X, x):
+    """Squared residual in normalized coords for resection scoring.
+    R: (..., 3, 3), C: (..., 3), X: (..., N, 3), x: (..., N, 2); leading
+    dimensions broadcast. Behind the camera: 1e12."""
+    xc = (X - C[..., None, :]) @ R.transpose(-1, -2)
+    z = xc[..., 2]
+    proj = xc[..., :2] / torch.where(z.abs() > 1e-12, z, 1e-12)[..., None]
+    err = torch.sum((proj - x) ** 2, -1)
+    return torch.where(z > 0, err, 1e12)
+
+
+# ---------------------------------------------------------------------------
+# N-view triangulation (masked) and the pose polish
+# ---------------------------------------------------------------------------
+
+def triangulate_nview(R, C, b, mask):
+    """Triangulate one point from up to V views. R: (V,3,3), C: (V,3),
+    b: (V,3) unit bearings in the camera frames, mask: (V,). Returns
+    (X (3,), ok)."""
+    d = (R.transpose(-1, -2) @ b[..., None])[..., 0]   # rays in world frame
+    w = mask.to(R.dtype)
+    eye = torch.eye(3, dtype=R.dtype, device=R.device)
+    Ai = (eye[None] - d[:, :, None] * d[:, None, :]) * w[:, None, None]
+    A = Ai.sum(0)
+    rhs = (Ai @ C[..., None])[..., 0].sum(0)
+    X = solve3x3(A + 1e-9 * eye, rhs)
+    return X, mask.sum() >= 2
+
+
+def _pose_residual(dw, dC, R, C, X, xn, w):
+    from regard3d_tpu_torch.core import cameras
+    Rn = cameras.exp_so3(dw) @ R
+    Cn = C + dC
+    xc = (X - Cn) @ Rn.T
+    z = torch.where(xc[:, 2].abs() > 1e-9, xc[:, 2], 1e-9)
+    return (xc[:, :2] / z[:, None] - xn) * w[:, None]
+
+
+def refine_pose(R, C, X, xn, w, iters: int = 10, damping: float = 1e-6):
+    """Gauss–Newton pose polish on weighted 3D-2D correspondences in
+    normalized coords. R: (..., 3, 3), C: (..., 3), X: (..., N, 3),
+    xn: (..., N, 2), w: (..., N) weights, with one optional leading batch
+    dimension. Jacobians by forward mode (``jacfwd``). Returns (R, C)."""
+    from regard3d_tpu_torch.core import cameras
+    single = R.dim() == 2
+    if single:
+        R, C, X, xn, w = R[None], C[None], X[None], xn[None], w[None]
+    z3 = torch.zeros(3, dtype=X.dtype, device=X.device)
+    jac = torch.func.vmap(torch.func.jacfwd(_pose_residual, argnums=(0, 1)),
+                          in_dims=(None, None, 0, 0, 0, 0, 0))
+    res = torch.func.vmap(_pose_residual, in_dims=(None, None, 0, 0, 0, 0, 0))
+    eye6 = torch.eye(6, dtype=X.dtype, device=X.device)
+    for _ in range(iters):
+        Jw, JC = jac(z3, z3, R, C, X, xn, w)          # (B, N, 2, 3) each
+        B = R.shape[0]
+        Jm = torch.cat([Jw.reshape(B, -1, 3), JC.reshape(B, -1, 3)], -1)
+        r = res(z3, z3, R, C, X, xn, w).reshape(B, -1)
+        H = Jm.transpose(-1, -2) @ Jm + damping * eye6
+        g = (Jm.transpose(-1, -2) @ r[..., None])[..., 0]
+        d = -torch.linalg.solve_ex(H, g)[0]
+        R = cameras.exp_so3(d[:, :3]) @ R
+        C = C + d[:, 3:]
+    return (R[0], C[0]) if single else (R, C)

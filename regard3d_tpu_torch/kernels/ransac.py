@@ -1,6 +1,6 @@
-"""Batched AC-RANSAC for the geometric filter (F / E / H).
+"""Batched AC-RANSAC: the geometric filter (F / E / H) and resection.
 
-Counterpart of ``regard3d_tpu/kernels/ransac.py`` without resection. The
+Counterpart of ``regard3d_tpu/kernels/ransac.py``. The
 reference vmaps a single-pair filter over a block of pairs; here the pair
 block is an explicit leading dimension P of every tensor, and the
 ``lax.scan`` hypothesis sweep is a Python loop over chunks:
@@ -314,3 +314,100 @@ def acransac_e_batch(generators, x1, x2, mask, logalpha0, max_err_sq,
 def acransac_h_batch(generators, x1, x2, mask, logalpha0, max_err_sq,
                      iters: int = 1024, idx=None) -> RansacResult:
     return _h_one(generators, x1, x2, mask, logalpha0, max_err_sq, iters, idx)
+
+
+# ---------------------------------------------------------------------------
+# Resection (the incremental engine's add-view step)
+# ---------------------------------------------------------------------------
+
+class ResectionResult(NamedTuple):
+    R: torch.Tensor             # (P, 3, 3)
+    C: torch.Tensor             # (P, 3)
+    inliers: torch.Tensor       # (P, N) bool
+    num_inliers: torch.Tensor   # (P,) int
+    valid: torch.Tensor         # (P,) bool
+
+
+def acransac_resection(generator, X, xn, mask, focal_px: float = 1.0,
+                       iters: int = 512, max_err_px: float = 4.0,
+                       solver: str = "p3p", idx=None) -> ResectionResult:
+    """Robust resection of one view on normalized camera coords. X (N, 3),
+    xn (N, 2), mask (N,); ``idx`` (iters, s) optional precomputed draws.
+    Returns a ResectionResult without the leading dimension."""
+    max_err = (max_err_px / focal_px) ** 2
+    res = acransac_resection_batch(
+        None if generator is None else [generator], X[None], xn[None],
+        mask[None], torch.full((1,), max_err, dtype=X.dtype,
+                               device=X.device),
+        iters=iters, solver=solver, idx=None if idx is None else
+        torch.as_tensor(idx)[None])
+    return ResectionResult(*(t[0] for t in res))
+
+
+def acransac_resection_batch(generators, X, xn, mask, max_err,
+                             iters: int = 512, solver: str = "p3p",
+                             idx=None) -> ResectionResult:
+    """Resection over a view group (the grouped add-view step): P3P
+    minimal samples (all up to 4 Grunert poses of a draw scored) or 6-point
+    DLT, a chunked sweep of 128 draws a step, then a Gauss-Newton polish on
+    the inliers and a second one on the recounted consensus. ``max_err``:
+    (P,) squared normalized-coordinate bounds ((max_err_px / focal)^2).
+    Shapes: X (P, N, 3), xn (P, N, 2), mask (P, N); ``generators`` one per
+    view, or ``idx`` (P, iters, s) precomputed draws."""
+    P, n = mask.shape
+    s = 3 if solver == "p3p" else 6
+    max_err = _per_pair(max_err, P, X)
+    idx = _samples(generators, mask, iters, s, idx)
+    chunk = min(iters, 128)
+    n_chunks = -(-iters // chunk)
+
+    dt, dev = X.dtype, X.device
+    b_score = torch.full((P,), _BIG * n, dtype=dt, device=dev)
+    b_R = torch.zeros((P, 3, 3), dtype=dt, device=dev)
+    b_C = torch.zeros((P, 3), dtype=dt, device=dev)
+    b_ok = torch.zeros((P,), dtype=torch.bool, device=dev)
+    for c in range(n_chunks):
+        ic = idx[:, c * chunk:(c + 1) * chunk]
+        C_ = ic.shape[1]
+        Xs = _gather_rows(X, ic).reshape(P * C_, s, 3)
+        xs = _gather_rows(xn, ic).reshape(P * C_, s, 2)
+        if solver == "p3p":
+            Rc, Cc, okc = geometry.p3p_grunert(Xs, xs)
+            m = C_ * 4
+        else:
+            Rc, Cc, okc = geometry.resection_dlt(Xs, xs)
+            m = C_
+        Rc, Cc, okc = Rc.reshape(P, m, 3, 3), Cc.reshape(P, m, 3), \
+            okc.reshape(P, m)
+        resid = geometry.reprojection_err_normalized(Rc, Cc, X[:, None],
+                                                     xn[:, None])
+        resid = torch.where(mask[:, None, :] & okc[:, :, None], resid, _BIG)
+        score = torch.sum(torch.minimum(resid, max_err[:, None, None]), -1)
+        b = torch.argmin(score, dim=-1)
+        sb = _take(score, b)
+        better = sb < b_score
+        b_score = torch.where(better, sb, b_score)
+        b_R = torch.where(better[:, None, None], _take(Rc, b), b_R)
+        b_C = torch.where(better[:, None], _take(Cc, b), b_C)
+        b_ok = torch.where(better, _take(okc, b), b_ok)
+
+    def resid_of(R, C):
+        return geometry.reprojection_err_normalized(
+            R[:, None], C[:, None], X[:, None], xn[:, None])[:, 0]
+    me = max_err[:, None]
+    r_best = torch.where(mask & b_ok[:, None], resid_of(b_R, b_C), _BIG)
+    inliers = mask & (r_best <= me)
+    Rb, Cb = geometry.refine_pose(b_R, b_C, X, xn, inliers.to(dt), iters=10)
+    r2 = torch.where(mask, resid_of(Rb, Cb), _BIG)
+    inliers2 = mask & (r2 <= me)
+    Rb2, Cb2 = geometry.refine_pose(Rb, Cb, X, xn, inliers2.to(dt), iters=5)
+    r3 = torch.where(mask, resid_of(Rb2, Cb2), _BIG)
+    inliers3 = mask & (r3 <= me)
+
+    better = inliers3.sum(-1) >= inliers.sum(-1)
+    Rf = torch.where(better[:, None, None], Rb2, b_R)
+    Cf = torch.where(better[:, None], Cb2, b_C)
+    inl = torch.where(better[:, None], inliers3, inliers)
+    num = inl.sum(-1)
+    valid = b_ok & (num >= 7)
+    return ResectionResult(Rf, Cf, inl, num, valid)

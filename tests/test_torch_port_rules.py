@@ -20,9 +20,13 @@ import pytest
 import torch
 
 from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch.ba import lm as tlm
 from regard3d_tpu_torch.kernels import match as tm
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
 from regard3d_tpu_torch.pipeline import features as tfeat
+from regard3d_tpu_torch.pipeline import triangulation_step as ttri
+from regard3d_tpu_torch.sfm import incremental as tinc
+from regard3d_tpu_torch.tools import accuracy as tacc
 
 # several pytest workers share the host: a small intra-op pool per worker
 # keeps torch from oversubscribing the cores
@@ -110,6 +114,30 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         runtime.resolve_device("cuda")
     assert not os.path.exists(tmp_path / "a" / "sfm_data.json")
     assert runtime.resolve_device("cpu") == torch.device("cpu")
+    # the triangulation stage: its driver, engine, BA and accuracy tool
+    intr = np.zeros((1, 9), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttri.run_triangulation(str(tmp_path / "a"), str(tmp_path / "t"),
+                               img, np.zeros(2, np.int32), intr,
+                               np.zeros(1, np.int32))
+    assert not os.path.exists(tmp_path / "t")
+    inputs = tinc.SfMInputs(
+        xy=torch.zeros((0, 2)), track_id=torch.zeros(0, dtype=torch.long),
+        view_id=torch.zeros(0, dtype=torch.long),
+        feature_id=torch.zeros(0, dtype=torch.long), num_tracks=0,
+        intr_id=torch.zeros(2, dtype=torch.long), intr=torch.zeros((1, 9)),
+        models=torch.zeros(1, dtype=torch.long),
+        image_sizes=np.zeros((2, 2)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tinc.run_incremental(inputs)
+    state = tlm.BAState(R=torch.eye(3)[None], C=torch.zeros((1, 3)),
+                        intr=torch.zeros((1, 9)), X=torch.zeros((1, 3)))
+    obs = tlm.BAObservations(*(torch.zeros(1, dtype=torch.long),) * 4,
+                             xy=torch.zeros((1, 2)), weight=torch.ones(1))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tlm.bundle_adjust(state, obs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tacc.run_dataset("fountain")
 
 
 def test_kernel_wrappers_never_fall_back(rng):
