@@ -23,7 +23,8 @@ run if it fails:
     the single-pair call in f32 and bf16 with ragged M != N (split over
     column ranges), the two ablations of the matcher profile at the
     kernel's column tile; time kernel, plain version and ``torch.bmm`` /
-    ``torch.mm`` of the same distance products (a yardstick only), and split
+    ``torch.mm`` of the same distance products (a yardstick only; none for
+    ``min_only``), and split
     the single-pair call's host time per call between its wrapper, its
     launch and its C call. Fails if bf16 K1 is not above the FFMA peak (it
     would not be on the tensor cores) or ``mm_only`` beats its tensor-core
@@ -57,8 +58,21 @@ run if it fails:
     radial-K3 with zero-initialized distortion recovered by BA) must meet
     the reference's gates; its row is printed beside ACCURACY.json's row
     for the same dataset (an ``accuracy`` JSON line);
+(i) the dense slice on (g)'s posed scene and the same images, at the CLI's
+    defaults for ``--method tpu``: ``mvs.driver.densify_scene`` (level 1,
+    96 planes, 6 sources) -> ``dense.ply`` -> ``surface.poisson.
+    reconstruct`` (depth 8, point weight 4, trim 7) -> ``surface.ply`` ->
+    ``export.model_ops.colorize_mesh_from_cloud`` (k = 3) ->
+    ``surface.texture.texture_mesh`` + ``write_textured_obj``. Fails unless
+    every view has a depth map, the cloud and the mesh, mapped into the
+    truth frame by the Sim3 fitted on the camera centres, lie on the
+    fountain's quads (the GATE_* constants), a second reconstruct of the
+    same cloud gives the same mesh bit for bit, and every artifact reads
+    back. The second run is profiled: per span (``densify.*``,
+    ``surface.*``, ``texture.*``) the host time, device busy time, idle
+    share, operation count and largest kernels; one ``dense`` JSON line;
 (d) print the ``kernels`` JSON line (launches from the run of the path each
-    kernel lies on: (b), its flann run, or (f); (g) and (h) launch no
+    kernel lies on: (b), its flann run, or (f); (g), (h) and (i) launch no
     kernel of their own), then the card's name and power limit, and the
     final ``{"ok": true, ...}`` line.
 
@@ -67,6 +81,7 @@ Exits non-zero, printing no result, when no CUDA device is available.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import json
 import os
@@ -87,6 +102,35 @@ N_CAMS, HW, MAX_KP, PAIR_BLOCK = 11, 1024, 4096, 64
 PHASES = ("features", "matching", "filter")
 SFM_PHASES = ("init", "resection", "triangulation", "ba", "outlier")
 ATE_BOUND = 0.08                 # bench_accuracy.GATES
+
+# (i) the dense slice at the CLI's defaults for --method tpu
+# (regard3d_tpu/pipeline/external.py:135-138, :229-234, :263-267)
+DENSE_KW = dict(level=1, num_planes=96, wsize=7, threshold=0.7,
+                num_sources=6, csize=2, min_image_num=3)
+SURFACE_KW = dict(depth=8, samples_per_node=1.0, point_weight=4.0,
+                  trim_threshold=7.0)
+DENSE_SPANS = ("densify.sweep", "densify.fusion", "surface.splat",
+               "surface.solve", "surface.marching", "surface.trim",
+               "texture.visibility", "texture.sample")
+# the fountain stand-in's three quads (origin, u, v), copied from
+# regard3d_tpu/ingest/synth.py:164-166 (each a rectangle: u . v = 0)
+FOUNTAIN_QUADS = np.array([
+    [[-5, -3, 2], [10, 0, 0], [0, 6, 0]],               # back wall
+    [[-1.2, -1.2, 0.6], [2.4, 0, 0], [0, 2.4, 0.9]],    # slab
+    [[-5, 3, -4], [10, 0, 0], [0, 0, 6]],               # ground
+], np.float64)
+# geometry gates of (i); distances are fractions of the scene extent (the
+# diagonal of the quads' bounding box)
+GATE_CLOUD_TOL, GATE_CLOUD_FRAC = 0.01, 0.90
+# set from the first card run (PERF.md §6, PR 4): normals of 7x7-smoothed
+# 512^2 depth maps gave a median |cos| of 0.888 on (g)'s scene and on the
+# exact poses alike; the window is fixed in pixels, so the finer the map the
+# more of the sweep's depth noise reaches the normals. The reference gives
+# the same normals on the same depth maps, and the same statistic on the
+# fountain at 256 px (tests/test_torch_mvs.py)
+GATE_NORMAL_COS = 0.85
+GATE_MIN_POINTS = 50_000         # 11 views x 256^2 grid cells at csize=2
+GATE_SURFACE_TOL, GATE_SURFACE_FRAC = 0.02, 0.80
 
 
 def fail(msg: str):
@@ -428,14 +472,20 @@ def phase_kernels(desc, mask, parr):
                     out_words=3, bf16=bf16, replaces=K2, compare=top2(bf16))
         row["host_us"] = host_split(match_mod, a, b, mb, ab, bb, bf16)
         log(f"(c) {row['name']}: host us per call {row['host_us']}")
-    # K3: the ablations against their plain versions at the kernel's tile_n
+    # K3: the ablations against their plain versions at the kernel's tile_n;
+    # mm_only's library call is torch.bmm of the same bf16 operands (K1's),
+    # min_only has none (it would take baddbmm + amin)
+    ga = desc[pl[:, 0]].to(torch.bfloat16)
+    gb = desc[pl[:, 1]].to(torch.bfloat16)
     for mode in match_mod.ABLATIONS:
         row = entry(f"l2_top2_block_{mode}_bf16",
                     run=lambda m=mode: match_mod.l2_top2_block_ablated(
                         desc, mask, parr, m),
                     plain=lambda m=mode: match_mod.l2_top2_block_ablated_plain(
                         desc, mask, parr, m, match_mod.TILE_N),
-                    lib=None, M=N, Nn=N, in_bytes=dbytes, out_words=1,
+                    lib=(lambda: torch.bmm(ga, gb.transpose(1, 2)))
+                    if mode == "mm_only" else None,
+                    M=N, Nn=N, in_bytes=dbytes, out_words=1,
                     bf16=True, replaces=K3,
                     compare=lambda n, g, w: _close(n, g, w, 1e-5, 1e-5))
         if mode == "mm_only":
@@ -592,19 +642,41 @@ def run_sfm(ds, matches, out):
                                 params=ts.TriangulationParams())
 
 
-def _spans(events, tag):
-    """CPU intervals of each ``tag.<name>`` span and the device operations
-    (start, end, name) of a profiler run's raw events."""
+def span_table(events, names):
+    """Per profiler span name (CPU ``record_function`` spans, one name may
+    open many times): the number of spans, their host time, the device's
+    busy time and idle share over the device operations that start inside
+    them, the operation count and the three largest kernels by time. The
+    device-side copies of the spans' own annotations are not operations."""
     from torch.autograd import DeviceType
     spans, device = collections.defaultdict(list), []
     for e in events:
         name = e.name()
-        if name.startswith(tag):
+        if name in names:
             if e.device_type() == DeviceType.CPU:
-                spans[name[len(tag):]].append((e.start_ns(), e.end_ns()))
+                spans[name].append((e.start_ns(), e.end_ns()))
         elif e.device_type() == DeviceType.CUDA:
             device.append((e.start_ns(), e.end_ns(), name))
-    return spans, device
+    device.sort()
+    starts = [o[0] for o in device]
+    rows = []
+    for name in names:
+        check(name in spans, f"no profiler span {name}")
+        ops = []
+        for lo, hi in spans[name]:
+            ops += device[bisect.bisect_left(starts, lo):
+                          bisect.bisect_right(starts, hi)]
+        host = sum(hi - lo for lo, hi in spans[name]) * 1e-9
+        busy = _busy_s([(a, b) for a, b, _ in ops])
+        top = collections.Counter()
+        for a, b, kname in ops:
+            top[kname[:80]] += (b - a) * 1e-9
+        rows.append({"span": name, "spans": len(spans[name]),
+                     "host_s": host, "device_busy_s": busy,
+                     "idle_share": 1.0 - busy / host if host else None,
+                     "device_ops": len(ops),
+                     "top_kernels": [[k, v] for k, v in top.most_common(3)]})
+    return rows
 
 
 def _bit_identical_ba(scene):
@@ -680,30 +752,13 @@ def phase_sfm(ds, matches, workdir):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         again = run_sfm(ds, matches, os.path.join(workdir, "sfm_prof"))
-    spans, device = _spans(prof.profiler.kineto_results.events(),
-                           "triangulation.")
-    device.sort()
-    starts = [o[0] for o in device]
-    import bisect
-    rows = []
-    for ph in SFM_PHASES:
-        check(ph in spans, f"no profiler span for engine phase {ph}")
-        ops = []
-        for lo, hi in spans[ph]:
-            ops += device[bisect.bisect_left(starts, lo):
-                          bisect.bisect_right(starts, hi)]
-        host = sum(hi - lo for lo, hi in spans[ph]) * 1e-9
-        busy = _busy_s([(a, b) for a, b, _ in ops])
-        top = collections.Counter()
-        for a, b, name in ops:
-            top[name[:80]] += (b - a) * 1e-9
-        rows.append({"phase": ph, "spans": len(spans[ph]), "host_s": host,
-                     "device_busy_s": busy,
-                     "idle_share": 1.0 - busy / host if host else None,
-                     "device_ops": len(ops),
-                     "top_kernels": [[k, v] for k, v in top.most_common(3)]})
-        log(f"(g) {ph}: {len(spans[ph])} spans, host {host:.3f} s, device "
-            f"busy {busy:.3f} s, {len(ops)} device ops")
+    rows = span_table(prof.profiler.kineto_results.events(),
+                      ["triangulation." + ph for ph in SFM_PHASES])
+    for r in rows:
+        r["phase"] = r.pop("span")[len("triangulation."):]
+        log(f"(g) {r['phase']}: {r['spans']} spans, host {r['host_s']:.3f} "
+            f"s, device busy {r['device_busy_s']:.3f} s, {r['device_ops']} "
+            f"device ops")
     check(sum(r["device_ops"] for r in rows) > 0,
           "the triangulation stage ran nothing on the device")
     check(again["num_cameras"] == N_CAMS, "profiled run: cameras")
@@ -719,6 +774,232 @@ def phase_sfm(ds, matches, workdir):
         "focal_gt": float(ds["f"]), "ba_repeat": ba,
         "profiled_run": {"elapsed_s": again["elapsed_s"],
                          "profile": again["profile"], "spans": rows}}}))
+
+
+def quad_distances(P):
+    """Distance of each point (N, 3) to each fountain quad: (N, 3)."""
+    out = []
+    for o, u, v in FOUNTAIN_QUADS:
+        rel = P - o
+        s = np.clip(rel @ u / (u @ u), 0.0, 1.0)
+        t = np.clip(rel @ v / (v @ v), 0.0, 1.0)
+        out.append(np.linalg.norm(rel - s[:, None] * u - t[:, None] * v,
+                                  axis=1))
+    return np.stack(out, 1)
+
+
+def scene_extent() -> float:
+    o, u, v = FOUNTAIN_QUADS[:, 0], FOUNTAIN_QUADS[:, 1], FOUNTAIN_QUADS[:, 2]
+    corners = np.concatenate([o, o + u, o + v, o + u + v])
+    return float(np.linalg.norm(corners.max(0) - corners.min(0)))
+
+
+def exact_scene(scene, ds):
+    """(g)'s scene with the dataset's exact poses and focal, its landmarks
+    mapped into the truth frame (so the sweep keeps its sources and depth
+    ranges): what the dense slice gives without the scene's own error."""
+    from regard3d_tpu_torch.core import metrics
+    pm = scene.poses.mask.numpy()
+    sim = metrics.umeyama(scene.poses.C.numpy()[pm], ds["Cs"][pm])
+    params = scene.intrinsics.params.clone()
+    params[:, :3] = torch.tensor([ds["f"], ds["hw"] / 2.0, ds["hw"] / 2.0])
+    params[:, 3:] = 0.0
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
+    return scene.replace(
+        intrinsics=scene.intrinsics.replace(params=params),
+        poses=scene.poses.replace(R=f32(ds["Rs"]), C=f32(ds["Cs"])),
+        landmarks=scene.landmarks.replace(
+            X=f32(sim.apply(scene.landmarks.X.numpy()))))
+
+
+def dense_geometry(scene, Cs_true, xyz, nrm, verts=None):
+    """The dense cloud and the mesh vertices in the truth frame (the Sim3
+    that ``umeyama`` fits from the estimated camera centres to the true
+    ones) against the fountain's quads: the share of points within
+    GATE_CLOUD_TOL of the extent of a quad, the median |cos| between each
+    point's normal and its nearest quad's, the share of mesh vertices
+    within GATE_SURFACE_TOL."""
+    from regard3d_tpu_torch.core import metrics
+    pm = scene.poses.mask.numpy()
+    sim = metrics.umeyama(scene.poses.C.numpy()[pm], Cs_true[pm])
+    ext = scene_extent()
+    X = sim.apply(xyz)
+    N = np.asarray(nrm, np.float64) @ sim.R.T
+    N /= np.maximum(np.linalg.norm(N, axis=1, keepdims=True), 1e-12)
+    d = quad_distances(X)
+    qn = np.cross(FOUNTAIN_QUADS[:, 1], FOUNTAIN_QUADS[:, 2])
+    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
+    cos = np.abs(np.sum(N * qn[d.argmin(1)], 1))
+    geo = {"extent": ext, "sim3_scale": sim.scale,
+            "cloud_near_frac": float((d.min(1) <= GATE_CLOUD_TOL * ext)
+                                     .mean()),
+            "cloud_dist_median": float(np.median(d.min(1))),
+            "cloud_dist_p90": float(np.percentile(d.min(1), 90)),
+            "normal_cos_median": float(np.median(cos))}
+    if verts is not None:
+        dv = quad_distances(sim.apply(verts)).min(1)
+        geo["surface_near_frac"] = float((dv <= GATE_SURFACE_TOL * ext)
+                                         .mean())
+        geo["surface_dist_median"] = float(np.median(dv))
+    return geo
+
+
+def run_dense(scene, images, out, device="cuda", cloud_path=None,
+              write_obj=True):
+    """The dense slice's main path as the CLI chains it (densify ->
+    dense.ply -> reconstruct on the cloud read back -> surface.ply ->
+    k-NN vertex colors -> texture atlas -> OBJ + MTL + PNG). Reconstructs
+    ``cloud_path`` instead of this run's own cloud when given. Returns the
+    products and each step's host seconds and peak device memory."""
+    from regard3d_tpu_torch.export import model_ops, ply
+    from regard3d_tpu_torch.mvs import driver
+    from regard3d_tpu_torch.surface import poisson, texture
+    os.makedirs(out, exist_ok=True)
+    cuda = torch.device(device).type == "cuda"
+    steps = {}
+
+    def step(name, fn):
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        r = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        steps[name] = {"host_s": time.perf_counter() - t0,
+                       "peak_device_gb": (torch.cuda.max_memory_allocated()
+                                          / 1e9 if cuda else None)}
+        return r
+
+    xyz, nrm, rgb, dmaps = step("densify", lambda: driver.densify_scene(
+        scene, images, device=device, **DENSE_KW))
+    dense = os.path.join(out, "dense.ply")
+    ply.write_ply(dense, ply.PlyData(xyz=xyz, rgb=(rgb * 255).astype(
+        np.uint8), normals=nrm))
+    cloud = ply.read_ply(cloud_path or dense)
+    verts, faces = step("surface", lambda: poisson.reconstruct(
+        cloud.xyz, cloud.normals, device=device, **SURFACE_KW))
+    surface = os.path.join(out, "surface.ply")
+    ply.write_ply(surface, ply.PlyData(xyz=verts, faces=faces))
+    colored = step("colorize", lambda: model_ops.colorize_mesh_from_cloud(
+        surface, dense, os.path.join(out, "surface_colored.ply"), k=3))
+    surf = ply.read_ply(surface)
+    tex = step("texture", lambda: texture.texture_mesh(
+        scene, images, surf.xyz, surf.faces, device=device))
+    if write_obj:
+        step("write_obj", lambda: texture.write_textured_obj(
+            os.path.join(out, "textured"), tex))
+    return dict(xyz=xyz, nrm=nrm, dmaps=dmaps, verts=verts, faces=faces,
+                colored=colored, tex=tex, cloud=cloud, steps=steps)
+
+
+def check_dense_artifacts(out, res):
+    """Every artifact parses back with the counts of the run."""
+    from PIL import Image
+    from regard3d_tpu_torch.export import ply
+    n, nv, nf = len(res["xyz"]), len(res["verts"]), len(res["faces"])
+    dense = res["cloud"]
+    check(len(dense.xyz) == n and dense.normals is not None
+          and dense.rgb is not None, "dense.ply: points, normals, colors")
+    surf = ply.read_ply(os.path.join(out, "surface.ply"))
+    check(len(surf.xyz) == nv and len(surf.faces) == nf,
+          "surface.ply: vertex and face counts")
+    col = ply.read_ply(os.path.join(out, "surface_colored.ply"))
+    check(len(col.xyz) == nv and len(col.faces) == nf and col.rgb is not None
+          and col.rgb.shape == (nv, 3), "surface_colored.ply")
+    prefix = os.path.join(out, "textured")
+    with open(prefix + ".obj") as fh:
+        kinds = collections.Counter(line.split(" ", 1)[0] for line in fh)
+    check(kinds["v"] == nv and kinds["vt"] == 3 * nf and kinds["f"] == nf,
+          f"textured.obj: {dict(kinds)}")
+    with open(prefix + ".mtl") as fh:
+        check("map_Kd textured.png" in fh.read(), "textured.mtl")
+    A = res["tex"].atlas.shape[0]
+    with Image.open(prefix + ".png") as im:
+        check(im.size == (A, A), f"textured.png {im.size} != {A}")
+
+
+def phase_dense(ds, scene_npz, workdir):
+    """(i) the dense slice on (g)'s posed scene at the CLI defaults: its
+    geometry against the fountain's quads, a reconstruct that repeats bit
+    for bit, every artifact read back, and where its time goes by span."""
+    from torch.profiler import ProfilerActivity, profile
+    from regard3d_tpu_torch.core.sfm_data import load_npz
+
+    scene = load_npz(scene_npz)
+    out = os.path.join(workdir, "dense")
+    t0 = time.time()
+    res = run_dense(scene, ds["images"], out)
+    elapsed = time.time() - t0
+    geo = dense_geometry(scene, ds["Cs"], res["xyz"], res["nrm"],
+                         res["verts"])
+    n, nf = len(res["xyz"]), len(res["faces"])
+    log(f"(i) {len(res['dmaps'])} depth maps, {n} points, "
+        f"{len(res['verts'])} vertices, {nf} faces, {elapsed:.1f} s; "
+        f"geometry {geo}; steps {res['steps']}")
+    check_dense_artifacts(out, res)
+    from regard3d_tpu_torch.mvs import driver
+    # the same densify on the exact poses and focal, at the CLI's level
+    # (512^2 depth maps) and one level coarser (256^2): how much of the
+    # normals' spread is the scene's error and how much the map resolution
+    exact = exact_scene(scene, ds)
+    geo_exact = {}
+    for level in (DENSE_KW["level"], DENSE_KW["level"] + 1):
+        xyz_e, nrm_e, _, _ = driver.densify_scene(
+            exact, ds["images"], **dict(DENSE_KW, level=level))
+        geo_exact[f"level{level}"] = dict(
+            dense_geometry(exact, ds["Cs"], xyz_e, nrm_e),
+            points=len(xyz_e))
+    log(f"(i) the same densify on the exact poses and focal: {geo_exact}")
+
+    # the same cloud once more under the profiler: its reconstruct must
+    # give the same mesh bit for bit
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        again = run_dense(scene, ds["images"], os.path.join(workdir,
+                                                            "dense_prof"),
+                          cloud_path=os.path.join(out, "dense.ply"),
+                          write_obj=False)
+    repeat = {"mesh_identical": bool(
+        np.array_equal(again["verts"], res["verts"])
+        and np.array_equal(again["faces"], res["faces"])),
+        "cloud_identical": bool(np.array_equal(again["xyz"], res["xyz"])
+                                and np.array_equal(again["nrm"],
+                                                   res["nrm"]))}
+    rows = span_table(prof.profiler.kineto_results.events(), DENSE_SPANS)
+    for r in rows:       # span "<step>.<name>": the peak of its step
+        r["peak_device_gb_of_step"] = res["steps"][
+            r["span"].split(".")[0]]["peak_device_gb"]
+        log(f"(i) {r['span']}: {r['spans']} spans, host {r['host_s']:.3f} "
+            f"s, device busy {r['device_busy_s']:.3f} s, idle "
+            f"{r['idle_share']:.3f}, {r['device_ops']} device ops, top "
+            f"{[k for k, _ in r['top_kernels']]}")
+    phase_s = time.time() - t0
+    log(json.dumps({"dense": {
+        "config": {"densify": DENSE_KW, "surface": SURFACE_KW,
+                   "colorize_k": 3, "views": N_CAMS, "hw": HW},
+        "points": n, "vertices": len(res["verts"]), "faces": nf,
+        "depth_maps": len(res["dmaps"]),
+        "atlas_px": res["tex"].atlas.shape[0],
+        "labelled_faces": float((res["tex"].labels >= 0).mean()),
+        "geometry": geo, "geometry_exact_poses": geo_exact,
+        "repeat": repeat, "elapsed_s": elapsed, "phase_s": phase_s,
+        "steps": res["steps"],
+        "profiled_run": {"steps": again["steps"], "spans": rows}}}))
+    check(len(res["dmaps"]) == N_CAMS, f"{len(res['dmaps'])} depth maps")
+    check(n >= GATE_MIN_POINTS, f"{n} dense points < {GATE_MIN_POINTS}")
+    check(geo["cloud_near_frac"] >= GATE_CLOUD_FRAC,
+          f"{geo['cloud_near_frac']:.4f} of the dense points within "
+          f"{GATE_CLOUD_TOL} of the extent of a quad < {GATE_CLOUD_FRAC}")
+    check(geo["normal_cos_median"] >= GATE_NORMAL_COS,
+          f"median |cos| of the normals {geo['normal_cos_median']:.4f}")
+    check(geo["surface_near_frac"] >= GATE_SURFACE_FRAC,
+          f"{geo['surface_near_frac']:.4f} of the surface vertices within "
+          f"{GATE_SURFACE_TOL} of the extent < {GATE_SURFACE_FRAC}")
+    check(repeat["mesh_identical"],
+          "a second reconstruct of the same cloud gave another mesh")
+    check(sum(r["device_ops"] for r in rows) > 0,
+          "the dense slice ran nothing on the device")
 
 
 def phase_accuracy():
@@ -772,6 +1053,7 @@ def main():
         paths["profile"] = phase_matcher_profile(descs.data, descs.mask,
                                                  parr)
         phase_sfm(ds, out, work)
+        phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
     phase_accuracy()
     for row in rows:
         row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]

@@ -21,11 +21,16 @@ import torch
 
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.ba import lm as tlm
+from regard3d_tpu_torch.core.types import Scene
+from regard3d_tpu_torch.export import formats as tfmt
 from regard3d_tpu_torch.kernels import match as tm
+from regard3d_tpu_torch.mvs import driver as tdrv
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
 from regard3d_tpu_torch.pipeline import features as tfeat
 from regard3d_tpu_torch.pipeline import triangulation_step as ttri
 from regard3d_tpu_torch.sfm import incremental as tinc
+from regard3d_tpu_torch.surface import poisson as tpo
+from regard3d_tpu_torch.surface import texture as ttx
 from regard3d_tpu_torch.tools import accuracy as tacc
 
 # several pytest workers share the host: a small intra-op pool per worker
@@ -138,6 +143,58 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         tlm.bundle_adjust(state, obs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tacc.run_dataset("fountain")
+
+
+def _posed_scene(n=2):
+    s = Scene.empty(n, 1, 1, 1)
+    params = torch.zeros_like(s.intrinsics.params)
+    params[0, :3] = torch.tensor([8.0, 4.0, 4.0])
+    return s.replace(
+        views=s.views.replace(mask=torch.ones(n, dtype=bool),
+                              width=torch.full((n,), 8, dtype=torch.int32),
+                              height=torch.full((n,), 8, dtype=torch.int32)),
+        intrinsics=s.intrinsics.replace(params=params),
+        poses=s.poses.replace(mask=torch.ones(n, dtype=bool)))
+
+
+DENSE_ENTRY_POINTS = {
+    "densify_scene": lambda sc, im, d: tdrv.densify_scene(sc, im, **d),
+    "compute_depth_maps": lambda sc, im, d: tdrv.compute_depth_maps(
+        sc, im, tdrv.PlaneSweepParams(), **d),
+    "fuse_depth_maps": lambda sc, im, d: tdrv.fuse_depth_maps(
+        sc, im, {}, tdrv.PlaneSweepParams(), **d),
+    "undistort_image": lambda sc, im, d: tfmt.undistort_image(im[0], sc, 0,
+                                                              **d),
+    "export_pmvs": lambda sc, im, d: tfmt.export_pmvs(d.pop("out"), sc, im,
+                                                      **d),
+    "export_mve2": lambda sc, im, d: tfmt.export_mve2(
+        d.pop("out"), sc, im, ["a.png", "b.png"], **d),
+    "reconstruct": lambda sc, im, d: tpo.reconstruct(
+        np.random.default_rng(0).normal(size=(64, 3)),
+        np.ones((64, 3)), depth=4, **d),
+    "face_view_data": lambda sc, im, d: ttx.face_view_data(
+        sc, np.zeros((2, 8, 8, 3), np.float32), np.full((2, 2), 8),
+        np.arange(2), np.eye(3, dtype=np.float32), np.array([[0, 1, 2]]),
+        **d),
+    "texture_mesh": lambda sc, im, d: ttx.texture_mesh(
+        sc, im, np.eye(3, dtype=np.float32), np.array([[0, 1, 2]]), **d),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DENSE_ENTRY_POINTS))
+def test_dense_entry_points_resolve_to_cuda(name, monkeypatch, tmp_path):
+    """(g) the dense slice's entry points: with no GPU and no device="cpu"
+    they raise; with device="cpu" they run on the CPU."""
+    call = DENSE_ENTRY_POINTS[name]
+    img = [np.zeros((8, 8), np.float32)] * 2
+    takes_out = name.startswith("export_")
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call(_posed_scene(), img,
+                 {"out": str(tmp_path / "a")} if takes_out else {})
+    call(_posed_scene(), img, dict(device="cpu", **(
+        {"out": str(tmp_path / "b")} if takes_out else {})))
 
 
 def test_kernel_wrappers_never_fall_back(rng):
