@@ -49,10 +49,10 @@ run if it fails:
     0.08, the median residual < 1 px, ``scene.npz`` loads back,
     ``sfm_data.json`` holds 11 extrinsics and one structure entry per live
     track, both PLYs read back, and two ``bundle_adjust`` calls on the final
-    state give bit-identical states. Then the stage once more under
-    ``torch.profiler``: per engine span (``triangulation.<phase>``) the
-    host time, the device's busy time and idle share and the number of
-    device operations. One ``sfm`` JSON line;
+    state give bit-identical states. The run is under ``torch.profiler``:
+    per engine span (``triangulation.<phase>``) the host time, the device's
+    busy time and idle share and the number of device operations. One
+    ``sfm`` JSON line;
 (h) the radial-K3 path: ``regard3d_tpu_torch.tools.accuracy.run_dataset(
     "fountain_rk3")`` (320 px, 2048 keypoints, 2048 RANSAC iterations,
     radial-K3 with zero-initialized distortion recovered by BA) must meet
@@ -66,15 +66,37 @@ run if it fails:
     ``surface.texture.texture_mesh`` + ``write_textured_obj``. Fails unless
     every view has a depth map, the cloud and the mesh, mapped into the
     truth frame by the Sim3 fitted on the camera centres, lie on the
-    fountain's quads (the GATE_* constants), a second reconstruct of the
-    same cloud gives the same mesh bit for bit, and every artifact reads
-    back. The second run is profiled: per span (``densify.*``,
-    ``surface.*``, ``texture.*``) the host time, device busy time, idle
-    share, operation count and largest kernels; one ``dense`` JSON line;
+    fountain's quads (the GATE_* constants) and every artifact reads back.
+    The run is profiled: per span (``densify.*``, ``surface.*``,
+    ``texture.*``) the host time, device busy time, idle share, operation
+    count and largest kernels; one ``dense`` JSON line;
+(j) the README's quick start through the command line, first of all the
+    phases (before this process touches the card, whatever the card's
+    compute mode): phase (b)'s 11 views written as JPEGs (quality 95) with
+    EXIF (a ``BUILTIN_SENSORS`` body, the focal at 1.03x the truth in mm,
+    GPS at the true centres: one scene unit a metre east/north/up of a
+    fixed origin), then ``python -m regard3d_tpu_torch.cli`` subprocesses
+    from another directory: init, import, ``matches --profile`` (the CLI
+    defaults: 4096 keypoints, 1024 iterations, brute-force), ``pairs
+    --json``, sfm (incremental2, radial-K3), ``sfm --engine incremental
+    --initial-pair <best pair> --use-gps``, export in all nine formats,
+    ``densify --method tpu``, ``surface --method tpu --depth 8`` with vertex
+    colors and with textures, previews, info. Fails unless every command
+    exits 0 and every step is ``finished``; import takes 11/11 focals from
+    EXIF within 1e-3 and the GPS back within 0.01 m; >= half the pairs are
+    F-validated with a median epipolar error < 1 px against the exact
+    geometry, and the trace shows the f32 matcher kernel launched; the
+    first sfm meets the accuracy gates; the GPS sfm's centres lie within
+    0.08 RMS of the truth with no alignment; every export parses; the
+    dense cloud and mesh meet (i)'s geometry gates, the two surfaces'
+    reconstructs of one cloud give the same mesh bit for bit and the
+    textured model reads back; no kernel was rebuilt. One ``cli`` JSON line with each
+    command's wall time (process start included) and ``running_time_s``;
 (d) print the ``kernels`` JSON line (launches from the run of the path each
-    kernel lies on: (b), its flann run, or (f); (g), (h) and (i) launch no
-    kernel of their own), then the card's name and power limit, and the
-    final ``{"ok": true, ...}`` line.
+    kernel lies on: (b), its flann run, or (f), and K1's launches in (j)'s
+    ``matches`` as ``launches_cli``; (g), (h) and (i) launch no kernel of
+    their own), then the card's name and power limit, and the final
+    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -83,6 +105,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -131,6 +154,9 @@ GATE_CLOUD_TOL, GATE_CLOUD_FRAC = 0.01, 0.90
 GATE_NORMAL_COS = 0.85
 GATE_MIN_POINTS = 50_000         # 11 views x 256^2 grid cells at csize=2
 GATE_SURFACE_TOL, GATE_SURFACE_FRAC = 0.02, 0.80
+# (j) the command line's export menu
+CLI_FORMATS = ("bundler", "pmvs", "nvm", "meshlab", "mve", "openmvs",
+               "sfmoutput", "externalmvs", "mvstexturing")
 
 
 def fail(msg: str):
@@ -219,6 +245,21 @@ def run_stage(ds, out):
                                   max_keypoints=MAX_KP)
 
 
+def epipolar_check(ds, out):
+    """F-validated pairs of a match directory and the median symmetric
+    epipolar distance of their inliers against the exact geometry."""
+    from regard3d_tpu_torch.pipeline import compute_matches as cm
+    from regard3d_tpu_torch.pipeline import features as fm
+    f_matches = cm.load_matches_txt(os.path.join(out, "matches.f.txt"))
+    kps, _ = fm.load_all_padded(out, N_CAMS, device="cpu")
+    xy = kps.xy.numpy()
+    dists = [sym_epipolar_px(true_fundamental(ds, i, j), xy[i][m[:, 0]],
+                             xy[j][m[:, 1]])
+             for (i, j), m in f_matches.items()]
+    med = float(np.median(np.concatenate(dists))) if dists else float("inf")
+    return len(f_matches), med
+
+
 def phase_stage(ds, workdir):
     from regard3d_tpu_torch.kernels import match as match_mod
     from regard3d_tpu_torch.pipeline import compute_matches as cm
@@ -250,14 +291,7 @@ def phase_stage(ds, workdir):
           f"putative pairs {len(files['putative'])} != {n_pairs}")
 
     # ground truth: F inliers against the exact epipolar geometry
-    kps, _ = fm.load_all_padded(out, N_CAMS, device="cpu")
-    xy = kps.xy.numpy()
-    dists = []
-    for (i, j), m in files["f"].items():
-        F = true_fundamental(ds, i, j)
-        dists.append(sym_epipolar_px(F, xy[i][m[:, 0]], xy[j][m[:, 1]]))
-    n_f = len(files["f"])
-    med = float(np.median(np.concatenate(dists))) if dists else float("inf")
+    n_f, med = epipolar_check(ds, out)
     summary = {
         "pairs": n_pairs, "pairs_f": n_f, "pairs_e": len(files["e"]),
         "pairs_h": len(files["h"]),
@@ -708,7 +742,8 @@ def _bit_identical_ba(scene):
 
 def phase_sfm(ds, matches, workdir):
     """(g) the triangulation stage on phase (b)'s matches, its artifacts,
-    the determinism of BA, and where its time goes by engine span."""
+    the determinism of BA, and where its time goes by engine span (one run,
+    under the profiler)."""
     from torch.profiler import ProfilerActivity, profile
     from regard3d_tpu_torch.core import metrics
     from regard3d_tpu_torch.core.sfm_data import load_npz
@@ -717,7 +752,9 @@ def phase_sfm(ds, matches, workdir):
     out = os.path.join(workdir, "sfm")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
-    stats = run_sfm(ds, matches, out)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        stats = run_sfm(ds, matches, out)
     elapsed = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     scene = load_npz(os.path.join(out, "scene.npz"))
@@ -748,10 +785,7 @@ def phase_sfm(ds, matches, workdir):
           "non-finite landmarks")
     ba = _bit_identical_ba(scene)
 
-    # where the time goes: the stage again under the profiler
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again = run_sfm(ds, matches, os.path.join(workdir, "sfm_prof"))
+    # where the time goes, by engine span
     rows = span_table(prof.profiler.kineto_results.events(),
                       ["triangulation." + ph for ph in SFM_PHASES])
     for r in rows:
@@ -761,7 +795,6 @@ def phase_sfm(ds, matches, workdir):
             f"device ops")
     check(sum(r["device_ops"] for r in rows) > 0,
           "the triangulation stage ran nothing on the device")
-    check(again["num_cameras"] == N_CAMS, "profiled run: cameras")
     log(json.dumps({"sfm": {
         "cameras": stats["num_cameras"], "tracks": stats["num_tracks"],
         "observations": stats["num_observations"], "ate": ate,
@@ -769,11 +802,9 @@ def phase_sfm(ds, matches, workdir):
         "residual_px": {k: stats[f"residual_{k}"]
                         for k in ("min", "max", "mean", "median")},
         "init_pair": stats["init_pair"], "profile": stats["profile"],
-        "elapsed_s": elapsed, "peak_device_gb": peak_gb,
+        "elapsed_profiled_s": elapsed, "peak_device_gb": peak_gb,
         "focal_est": float(scene.intrinsics.params[0, 0]),
-        "focal_gt": float(ds["f"]), "ba_repeat": ba,
-        "profiled_run": {"elapsed_s": again["elapsed_s"],
-                         "profile": again["profile"], "spans": rows}}}))
+        "focal_gt": float(ds["f"]), "ba_repeat": ba, "spans": rows}}))
 
 
 def quad_distances(P):
@@ -792,24 +823,6 @@ def scene_extent() -> float:
     o, u, v = FOUNTAIN_QUADS[:, 0], FOUNTAIN_QUADS[:, 1], FOUNTAIN_QUADS[:, 2]
     corners = np.concatenate([o, o + u, o + v, o + u + v])
     return float(np.linalg.norm(corners.max(0) - corners.min(0)))
-
-
-def exact_scene(scene, ds):
-    """(g)'s scene with the dataset's exact poses and focal, its landmarks
-    mapped into the truth frame (so the sweep keeps its sources and depth
-    ranges): what the dense slice gives without the scene's own error."""
-    from regard3d_tpu_torch.core import metrics
-    pm = scene.poses.mask.numpy()
-    sim = metrics.umeyama(scene.poses.C.numpy()[pm], ds["Cs"][pm])
-    params = scene.intrinsics.params.clone()
-    params[:, :3] = torch.tensor([ds["f"], ds["hw"] / 2.0, ds["hw"] / 2.0])
-    params[:, 3:] = 0.0
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32))
-    return scene.replace(
-        intrinsics=scene.intrinsics.replace(params=params),
-        poses=scene.poses.replace(R=f32(ds["Rs"]), C=f32(ds["Cs"])),
-        landmarks=scene.landmarks.replace(
-            X=f32(sim.apply(scene.landmarks.X.numpy()))))
 
 
 def dense_geometry(scene, Cs_true, xyz, nrm, verts=None):
@@ -844,12 +857,10 @@ def dense_geometry(scene, Cs_true, xyz, nrm, verts=None):
     return geo
 
 
-def run_dense(scene, images, out, device="cuda", cloud_path=None,
-              write_obj=True):
+def run_dense(scene, images, out, device="cuda"):
     """The dense slice's main path as the CLI chains it (densify ->
     dense.ply -> reconstruct on the cloud read back -> surface.ply ->
-    k-NN vertex colors -> texture atlas -> OBJ + MTL + PNG). Reconstructs
-    ``cloud_path`` instead of this run's own cloud when given. Returns the
+    k-NN vertex colors -> texture atlas -> OBJ + MTL + PNG). Returns the
     products and each step's host seconds and peak device memory."""
     from regard3d_tpu_torch.export import model_ops, ply
     from regard3d_tpu_torch.mvs import driver
@@ -876,7 +887,7 @@ def run_dense(scene, images, out, device="cuda", cloud_path=None,
     dense = os.path.join(out, "dense.ply")
     ply.write_ply(dense, ply.PlyData(xyz=xyz, rgb=(rgb * 255).astype(
         np.uint8), normals=nrm))
-    cloud = ply.read_ply(cloud_path or dense)
+    cloud = ply.read_ply(dense)
     verts, faces = step("surface", lambda: poisson.reconstruct(
         cloud.xyz, cloud.normals, device=device, **SURFACE_KW))
     surface = os.path.join(out, "surface.ply")
@@ -886,9 +897,8 @@ def run_dense(scene, images, out, device="cuda", cloud_path=None,
     surf = ply.read_ply(surface)
     tex = step("texture", lambda: texture.texture_mesh(
         scene, images, surf.xyz, surf.faces, device=device))
-    if write_obj:
-        step("write_obj", lambda: texture.write_textured_obj(
-            os.path.join(out, "textured"), tex))
+    step("write_obj", lambda: texture.write_textured_obj(
+        os.path.join(out, "textured"), tex))
     return dict(xyz=xyz, nrm=nrm, dmaps=dmaps, verts=verts, faces=faces,
                 colored=colored, tex=tex, cloud=cloud, steps=steps)
 
@@ -921,15 +931,18 @@ def check_dense_artifacts(out, res):
 
 def phase_dense(ds, scene_npz, workdir):
     """(i) the dense slice on (g)'s posed scene at the CLI defaults: its
-    geometry against the fountain's quads, a reconstruct that repeats bit
-    for bit, every artifact read back, and where its time goes by span."""
+    geometry against the fountain's quads, every artifact read back, and
+    where its time goes by span (one run, under the profiler; (j) holds
+    two reconstructs of one cloud to the same bits)."""
     from torch.profiler import ProfilerActivity, profile
     from regard3d_tpu_torch.core.sfm_data import load_npz
 
     scene = load_npz(scene_npz)
     out = os.path.join(workdir, "dense")
     t0 = time.time()
-    res = run_dense(scene, ds["images"], out)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run_dense(scene, ds["images"], out)
     elapsed = time.time() - t0
     geo = dense_geometry(scene, ds["Cs"], res["xyz"], res["nrm"],
                          res["verts"])
@@ -938,34 +951,6 @@ def phase_dense(ds, scene_npz, workdir):
         f"{len(res['verts'])} vertices, {nf} faces, {elapsed:.1f} s; "
         f"geometry {geo}; steps {res['steps']}")
     check_dense_artifacts(out, res)
-    from regard3d_tpu_torch.mvs import driver
-    # the same densify on the exact poses and focal, at the CLI's level
-    # (512^2 depth maps) and one level coarser (256^2): how much of the
-    # normals' spread is the scene's error and how much the map resolution
-    exact = exact_scene(scene, ds)
-    geo_exact = {}
-    for level in (DENSE_KW["level"], DENSE_KW["level"] + 1):
-        xyz_e, nrm_e, _, _ = driver.densify_scene(
-            exact, ds["images"], **dict(DENSE_KW, level=level))
-        geo_exact[f"level{level}"] = dict(
-            dense_geometry(exact, ds["Cs"], xyz_e, nrm_e),
-            points=len(xyz_e))
-    log(f"(i) the same densify on the exact poses and focal: {geo_exact}")
-
-    # the same cloud once more under the profiler: its reconstruct must
-    # give the same mesh bit for bit
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        again = run_dense(scene, ds["images"], os.path.join(workdir,
-                                                            "dense_prof"),
-                          cloud_path=os.path.join(out, "dense.ply"),
-                          write_obj=False)
-    repeat = {"mesh_identical": bool(
-        np.array_equal(again["verts"], res["verts"])
-        and np.array_equal(again["faces"], res["faces"])),
-        "cloud_identical": bool(np.array_equal(again["xyz"], res["xyz"])
-                                and np.array_equal(again["nrm"],
-                                                   res["nrm"]))}
     rows = span_table(prof.profiler.kineto_results.events(), DENSE_SPANS)
     for r in rows:       # span "<step>.<name>": the peak of its step
         r["peak_device_gb_of_step"] = res["steps"][
@@ -982,10 +967,8 @@ def phase_dense(ds, scene_npz, workdir):
         "depth_maps": len(res["dmaps"]),
         "atlas_px": res["tex"].atlas.shape[0],
         "labelled_faces": float((res["tex"].labels >= 0).mean()),
-        "geometry": geo, "geometry_exact_poses": geo_exact,
-        "repeat": repeat, "elapsed_s": elapsed, "phase_s": phase_s,
-        "steps": res["steps"],
-        "profiled_run": {"steps": again["steps"], "spans": rows}}}))
+        "geometry": geo, "elapsed_profiled_s": elapsed, "phase_s": phase_s,
+        "steps": res["steps"], "spans": rows}}))
     check(len(res["dmaps"]) == N_CAMS, f"{len(res['dmaps'])} depth maps")
     check(n >= GATE_MIN_POINTS, f"{n} dense points < {GATE_MIN_POINTS}")
     check(geo["cloud_near_frac"] >= GATE_CLOUD_FRAC,
@@ -996,10 +979,286 @@ def phase_dense(ds, scene_npz, workdir):
     check(geo["surface_near_frac"] >= GATE_SURFACE_FRAC,
           f"{geo['surface_near_frac']:.4f} of the surface vertices within "
           f"{GATE_SURFACE_TOL} of the extent < {GATE_SURFACE_FRAC}")
-    check(repeat["mesh_identical"],
-          "a second reconstruct of the same cloud gave another mesh")
     check(sum(r["device_ops"] for r in rows) > 0,
           "the dense slice ran nothing on the device")
+
+
+def trace_kernel_launches(path):
+    """Kernel events of a ``torch.profiler`` Chrome trace whose name comes
+    from ``csrc/match_top2.cu``, by name. The trace of a profiled stage
+    holds millions of events, so only the events around each occurrence of
+    the kernels' names are decoded."""
+    with open(path) as fh:
+        text = fh.read()
+    dec = json.JSONDecoder()
+    counts = collections.Counter()
+    for tag in ("l2_top2", "merge_splits_kernel"):
+        pos = text.find(tag)
+        while pos >= 0:
+            start = text.rfind("{", 0, pos)
+            try:
+                ev, end = dec.raw_decode(text, start)
+            except ValueError:
+                ev, end = {}, pos + 1
+            if ev.get("cat") == "kernel" and tag in ev.get("name", ""):
+                # "void (anonymous namespace)::l2_top2_f32_kernel<..>(..)"
+                name = ev["name"].replace("(anonymous namespace)::", "")
+                counts[name.split("(")[0].replace("void ", "")] += 1
+            pos = text.find(tag, max(end, pos + 1))
+    return dict(counts)
+
+
+def check_exports(root, n):
+    """Every format of the export menu wrote its files and they parse."""
+    import glob
+    import xml.etree.ElementTree as ET
+    from PIL import Image
+
+    def files(fmt, pattern, want):
+        got = sorted(glob.glob(os.path.join(root, fmt, pattern)))
+        check(len(got) == want,
+              f"export {fmt}: {len(got)} x {pattern}, want {want}")
+        return got
+
+    def read(path):
+        with open(path) as fh:
+            return fh.read().splitlines()
+
+    def images(paths):
+        for q in paths:
+            with Image.open(q) as im:
+                im.load()
+
+    for fmt in ("bundler", "pmvs"):
+        head = read(files(fmt, "bundle.rd.out", 1)[0])
+        check(head[0] == "# Bundle file v0.3"
+              and int(head[1].split()[0]) == n, f"{fmt}: bundle.rd.out")
+        check(len(read(files(fmt, "list.txt", 1)[0])) == n, f"{fmt}: list")
+    for q in files("pmvs", "PMVS/txt/*.txt", n):
+        rows = read(q)
+        check(rows[0] == "CONTOUR" and all(len(r.split()) == 4
+                                           for r in rows[1:4]), q)
+    images(files("pmvs", "PMVS/visualize/*.jpg", n))
+    files("pmvs", "PMVS/pmvs_options.txt", 1)
+    nvm = read(files("nvm", "scene.nvm", 1)[0])
+    check(nvm[0].startswith("NVM_V3") and int(nvm[2]) == n, "nvm header")
+    mlp = ET.parse(files("meshlab", "scene.mlp", 1)[0])
+    check(len(mlp.findall(".//MLRaster")) == n, "meshlab rasters")
+    files("mve", "MVE/synth_0.out", 1)
+    files("mve", "MVE/views/view_*.mve/meta.ini", n)
+    images(files("mve", "MVE/views/view_*.mve/undistorted.png", n))
+    with open(files("openmvs", "scene.mvs", 1)[0], "rb") as fh:
+        check(fh.read(4) == b"MVSI", "openmvs magic")
+    so = "SfM_output"
+    check(int(read(files("sfmoutput", f"{so}/views.txt", 1)[0])[2]) == n,
+          "SfM_output views.txt")
+    check(all(os.path.getsize(q) == 96
+              for q in files("sfmoutput", f"{so}/cameras/*.bin", n)),
+          "SfM_output camera matrices")
+    files("sfmoutput", f"{so}/cameras_disto/*.txt", n)
+    check(read(files("sfmoutput", f"{so}/clouds/calib.ply", 1)[0])[0]
+          == "ply", "calib.ply")
+    images(files("sfmoutput", f"{so}/images/*.jpg", n))
+    for q in files("externalmvs", "CMPMVS/*_P.txt", n):
+        check(read(q)[0] == "CONTOUR", q)
+    images(files("externalmvs", "CMPMVS/*.jpg", n))
+    check(int(read(files("externalmvs", "meshrecon/output.sfm", 1)[0])[0])
+          == n, "meshrecon/output.sfm")
+    files("externalmvs", "SURE/*.ori", n)
+    files("externalmvs", "MVMPR/data/*.cam", n)
+    files("externalmvs", "*.ini", 2)
+    for q in files("mvstexturing", "*.cam", n):
+        rows = read(q)
+        check(len(rows) == 2 and len(rows[0].split()) == 12, q)
+
+
+def phase_cli(ds, workdir, device="cuda", match_args=()):
+    """(j) the README's quick start through ``python -m regard3d_tpu_torch.
+    cli`` subprocesses on the card; returns K1's launches in its
+    ``matches``. ``device="cpu"`` and ``match_args`` (extra ``matches``
+    options) serve a rehearsal on a small scene."""
+    from regard3d_tpu_torch.core.sfm_data import load_npz
+    from regard3d_tpu_torch.core import metrics
+    from regard3d_tpu_torch.export import ply
+    from regard3d_tpu_torch.ingest import geodesy
+    from regard3d_tpu_torch.kernels import _build
+    from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.tools import photos
+    from PIL import Image
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(workdir, "cli")
+    run_dir = os.path.join(base, "cwd")          # not the repository
+    os.makedirs(run_dir)
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    build_dir = os.path.dirname(_build._lib_path(match_mod._SOURCE))
+    built = {f: os.path.getmtime(os.path.join(build_dir, f))
+             for f in os.listdir(build_dir)}
+    paths = photos.write_dataset(ds, os.path.join(base, "photos"))
+    proj = os.path.join(base, "proj")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    walls = []
+
+    def run(argv):
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "regard3d_tpu_torch.cli",
+                            "--device", device, *argv], cwd=run_dir, env=env,
+                           capture_output=True, text=True, timeout=900)
+        return r, time.time() - t0
+
+    def clis(*argvs):
+        """One CLI process per argv, all started together; their standard
+        outputs. Each process's wall time counts its start."""
+        with concurrent.futures.ThreadPoolExecutor(len(argvs)) as pool:
+            done = list(pool.map(run, argvs))
+        for argv, (r, wall) in zip(argvs, done):
+            check(r.returncode == 0, f"cli {' '.join(argv)}: exit "
+                  f"{r.returncode}\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+            walls.append({"argv": " ".join(a.replace(base, "<base>")
+                                           for a in argv), "wall_s": wall,
+                          "concurrent": len(argvs)})
+            log(f"(j) {walls[-1]['argv']}: {wall:.2f} s"
+                + (f" ({len(argvs)} at once)" if len(argvs) > 1 else ""))
+        return [r.stdout for r, _ in done]
+
+    def cli(*argv):
+        return clis(argv)[0]
+
+    cli("init", proj)
+    cli("import", proj, *paths)
+    prof_dir = os.path.join(base, "prof")
+    m_stats = json.loads(cli("matches", proj, "--profile", prof_dir,
+                             *match_args))
+    pairs = json.loads(cli("pairs", proj, "--json"))
+    best = f"{pairs[0]['i']},{pairs[0]['j']}"
+    s1 = json.loads(cli("sfm", proj))
+    s2 = json.loads(cli("sfm", proj, "--engine", "incremental",
+                        "--initial-pair", best, "--use-gps", "--id", "1"))
+    exports = os.path.join(base, "exports")
+    # the exports read the project and write apart: all nine at once
+    clis(*(("export", proj, "--id", "2", "--format", fmt, "--out",
+            os.path.join(exports, fmt)) for fmt in CLI_FORMATS))
+    d_stats = json.loads(cli("densify", proj, "--id", "2", "--method",
+                             "tpu"))
+    v_stats = json.loads(cli("surface", proj, "--method", "tpu", "--depth",
+                             "8", "--colorize", "vertices"))
+    t_stats = json.loads(cli("surface", proj, "--id", "4", "--method", "tpu",
+                             "--depth", "8", "--colorize", "textures"))
+    previews = os.path.join(base, "previews")
+    info = clis(("preview", proj, "--view", "0", "--out", previews),
+                ("preview", proj, "--pair", best, "--out", previews),
+                ("info", proj))[2]
+
+    # the project: every step finished, one line of `info` each
+    with open(os.path.join(proj, "project.json")) as fh:
+        pj = json.load(fh)
+    objs = {o["id"]: o for o in pj["objects"]}
+    steps = [o for o in objs.values() if o["kind"] != "pictureset"]
+    check([o["kind"] for o in steps] == ["matches", "triangulation",
+                                         "triangulation", "densification",
+                                         "surface", "surface"]
+          and all(o["state"] == "finished" for o in steps),
+          f"steps: {[(o['kind'], o['state']) for o in steps]}")
+    check(info.count("finished") == len(steps), "info")
+    # import: EXIF focals, GPS back after ENU
+    infos = objs[0]["params"]["image_info"]
+    f_err = max(abs(i["focal_px"] / (1.03 * ds["f"]) - 1.0) for i in infos)
+    ecef = np.array([geodesy.lla_to_ecef(*i["gps"]) for i in infos])
+    local, origin, R = geodesy.local_enu_frame(ecef)
+    true_local = (photos.enu_to_ecef(ds["Cs"]) - origin) @ R.T
+    gps_err = float(np.abs(local - true_local).max())
+    check(sum(i["from_exif"] for i in infos) == N_CAMS and f_err <= 1e-3,
+          f"import: focal from EXIF, rel err {f_err:.2e}")
+    check(gps_err <= 0.01, f"GPS read back {gps_err:.4f} m off")
+    # matches: the exact geometry, and K1 in the trace
+    mdir = os.path.join(proj, "matches_1")
+    n_f, med = epipolar_check(ds, mdir)
+    n_pairs = N_CAMS * (N_CAMS - 1) // 2
+    check(n_f * 2 >= n_pairs, f"cli matches: {n_f} of {n_pairs} pairs F")
+    check(med < 1.0, f"cli matches: median epipolar {med:.3f} px")
+    kernels = trace_kernel_launches(os.path.join(prof_dir, "trace.json"))
+    k1 = sum(v for k, v in kernels.items() if "l2_top2_f32_kernel" in k)
+    check(k1 > 0, f"the trace shows no f32 matcher launch: {kernels}")
+    # sfm: accuracy gates; GPS centres against the truth, no alignment
+    sc1 = load_npz(os.path.join(proj, "triangulation_2", "scene.npz"))
+    pm = sc1.poses.mask.numpy()
+    ate = metrics.ate_rmse(sc1.poses.C.numpy()[pm], ds["Cs"][pm])
+    check(s1["num_cameras"] == N_CAMS and ate <= ATE_BOUND
+          and s1["residual_median"] < 1.0,
+          f"cli sfm: {s1['num_cameras']} cameras, ATE {ate:.4f}, median "
+          f"{s1['residual_median']:.3f} px")
+    sc2 = load_npz(os.path.join(proj, "triangulation_3", "scene.npz"))
+    gps_rms = float(np.sqrt(((sc2.poses.C.numpy() - true_local) ** 2)
+                            .sum(1).mean()))
+    check(s2["num_cameras"] == N_CAMS and gps_rms <= ATE_BOUND,
+          f"cli sfm --use-gps: {s2['num_cameras']} cameras, centres "
+          f"{gps_rms:.4f} RMS from the truth")
+    check_exports(exports, N_CAMS)
+    # densify and surface: (i)'s gates; the textured model reads back
+    cloud = ply.read_ply(d_stats["dense_cloud"])
+    surf = ply.read_ply(os.path.join(proj, "surface_5", "surface.ply"))
+    geo = dense_geometry(sc1, ds["Cs"], cloud.xyz, cloud.normals, surf.xyz)
+    check(d_stats["num_depth_maps"] == N_CAMS
+          and len(cloud.xyz) >= GATE_MIN_POINTS
+          and geo["cloud_near_frac"] >= GATE_CLOUD_FRAC
+          and geo["normal_cos_median"] >= GATE_NORMAL_COS
+          and geo["surface_near_frac"] >= GATE_SURFACE_FRAC,
+          f"cli dense: {len(cloud.xyz)} points, geometry {geo}")
+    col = ply.read_ply(v_stats["surface"])
+    check(col.rgb is not None and len(col.xyz) == len(surf.xyz),
+          "surface_colored.ply")
+    tsurf = ply.read_ply(os.path.join(proj, "surface_6", "surface.ply"))
+    check(np.array_equal(tsurf.xyz, surf.xyz)
+          and np.array_equal(tsurf.faces, surf.faces),
+          "two reconstructs of the same cloud gave other meshes")
+    prefix = t_stats["surface"][:-len(".obj")]
+    with open(prefix + ".obj") as fh:
+        kinds = collections.Counter(line.split(" ", 1)[0] for line in fh)
+    check(kinds["v"] == len(tsurf.xyz) and kinds["vt"] == 3 * len(tsurf.faces)
+          and kinds["f"] == len(tsurf.faces), f"textured.obj {dict(kinds)}")
+    with open(prefix + ".mtl") as fh:
+        check("map_Kd textured.png" in fh.read(), "textured.mtl")
+    with Image.open(prefix + ".png") as im:
+        im.load()
+    for name in ("keypoints_0.png", "keypoints_0.svg",
+                 f"matches_{best.replace(',', '_')}_putative.png"):
+        check(os.path.getsize(os.path.join(previews, name)) > 0, name)
+    rebuilt = {f: t for f, t in ((f, os.path.getmtime(os.path.join(
+        build_dir, f))) for f in os.listdir(build_dir)) if built.get(f) != t}
+    check(not rebuilt, f"a CLI process rebuilt the kernels: {rebuilt}")
+
+    running = {o["id"]: o["running_time_s"] for o in steps}
+    step_of = {"matches": 1, "sfm": None, "densify": 4, "surface": None}
+    sfm_ids, surf_ids = iter((2, 3)), iter((5, 6))
+    for w in walls:
+        cmd = w["argv"].split()[0]
+        oid = (next(sfm_ids) if cmd == "sfm" else next(surf_ids)
+               if cmd == "surface" else step_of.get(cmd))
+        w["running_time_s"] = running.get(oid)
+    log(json.dumps({"cli": {
+        "compute_mode": mode, "commands": walls,
+        "matches": {"pairs_f": n_f, "median_sym_epipolar_px": med,
+                    "matches_f": m_stats["matches_f"],
+                    "time_features_s": m_stats["time_features_s"],
+                    "time_matching_s": m_stats["time_matching_s"],
+                    "time_filter_s": m_stats["time_filter_s"],
+                    "trace_kernels": kernels,
+                    "trace_mb": os.path.getsize(os.path.join(
+                        prof_dir, "trace.json")) / 1e6},
+        "import": {"focal_rel_err": f_err, "gps_err_m": gps_err},
+        "sfm": {"cameras": s1["num_cameras"], "ate": ate,
+                "residual_median_px": s1["residual_median"],
+                "focal_est": float(sc1.intrinsics.params[0, 0])},
+        "sfm_gps": {"cameras": s2["num_cameras"], "init_pair": best,
+                    "centre_rms_no_alignment": gps_rms},
+        "dense": {"points": len(cloud.xyz), "vertices": len(surf.xyz),
+                  "faces": len(surf.faces), "geometry": geo},
+        "phase_s": time.time() - t_phase}}))
+    return k1
 
 
 def phase_accuracy():
@@ -1038,6 +1297,8 @@ def main():
     from regard3d_tpu_torch.pipeline import features as fm
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
+        # first: the CLI's processes take the card before this one does
+        k1_cli = phase_cli(ds, work)
         out, launches = phase_stage(ds, work)
         kps, descs = fm.load_all_padded(out, N_CAMS, pad_to=256,
                                         padded_dim=cm.MATCH_DIM,
@@ -1057,6 +1318,8 @@ def main():
     phase_accuracy()
     for row in rows:
         row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]
+    k1_f32 = next(r for r in rows if r["name"] == "l2_top2_block_f32")
+    k1_f32["launches_cli"] = k1_cli       # (j)'s matches
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

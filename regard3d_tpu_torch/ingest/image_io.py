@@ -35,6 +35,11 @@ def load_gray(path: str, max_dim: int = 0) -> np.ndarray:
     return arr @ _LUMA
 
 
+def load_rgb(path: str) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32) / 255.0
+
+
 def pad_to_grid(img: np.ndarray, multiple: int = 8) -> np.ndarray:
     """Edge-pad so H and W are divisible by `multiple` (scale-space needs
     2**(omax-1) divisibility)."""

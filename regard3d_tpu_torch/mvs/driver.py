@@ -15,10 +15,9 @@ angle so near-identical baselines don't win (CMVS clusters on the same
 co-visibility signal, ``src/R3DDensificationProcess.cpp:113-130``).
 
 Profiler spans: ``densify.sweep`` (one per view) and ``densify.fusion``
-(one per view). Not ported yet: the view-sharded sweep
-(``compute_depth_maps_sharded``, with the distribution work) and the
-project-store entry point ``run_native_densification`` (with the project
-store and the CLI).
+(one per view). ``run_native_densification`` is the project-store entry
+point (``densify --method tpu``), on one device. Not ported yet: the
+view-sharded sweep (``compute_depth_maps_sharded``, ROADMAP §1 item 11).
 """
 
 from __future__ import annotations
@@ -306,3 +305,42 @@ def densify_scene(scene: Scene, images: Sequence[np.ndarray],
         scene, images, dmaps, params, csize=csize,
         min_consistent=max(min_image_num - 1, 1), tol=depth_tol, device=dev)
     return xyz, nrm, rgb, dmaps
+
+
+def run_native_densification(project, triangulation_id: int, out_dir: str,
+                             args, device=None) -> Dict:
+    """Project-store entry point (dispatch target of ``densify --method
+    tpu``) on one device (``cuda`` unless ``device="cpu"``); returns the
+    same result dict as the external runners and writes the reference's
+    ``depth_maps.npz`` and ``dense.ply``."""
+    import os
+
+    from regard3d_tpu_torch.core import sfm_data
+    from regard3d_tpu_torch.export.ply import PlyData, write_ply
+    from regard3d_tpu_torch.ingest import image_io
+
+    scene = sfm_data.load_npz(project.paths(triangulation_id).scene_npz)
+    ps_obj = project.objects[project.objects[triangulation_id].parent_id]
+    infos = project.objects[ps_obj.parent_id].params["image_info"]
+    images = [image_io.load_rgb(i["path"]) for i in infos]
+
+    xyz, nrm, rgb, dmaps = densify_scene(
+        scene, images,
+        level=getattr(args, "level", 1),
+        num_planes=getattr(args, "num_planes", 96),
+        wsize=getattr(args, "wsize", 7),
+        threshold=getattr(args, "threshold", 0.7),
+        num_sources=getattr(args, "num_sources", 6),
+        csize=getattr(args, "csize", 2),
+        min_image_num=getattr(args, "min_image_num", 3),
+        device=device)
+
+    np.savez_compressed(
+        os.path.join(out_dir, "depth_maps.npz"),
+        **{f"idepth_{v}": d.idepth for v, d in dmaps.items()},
+        **{f"ncc_{v}": d.ncc for v, d in dmaps.items()})
+    dense = os.path.join(out_dir, "dense.ply")
+    write_ply(dense, PlyData(xyz=xyz, rgb=(rgb * 255).astype(np.uint8),
+                             normals=nrm))
+    return {"method": "tpu", "dense_cloud": dense, "num_points": len(xyz),
+            "num_depth_maps": len(dmaps)}

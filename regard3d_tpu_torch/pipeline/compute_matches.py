@@ -19,8 +19,10 @@ Artifacts: matches.putative.txt, matches.{f,e,h}.txt (OpenMVG text format
 ``I J\\nN\\ni j`` per pair), Putative/GeometricAdjacencyMatrix.svg,
 sfm_data.json + lists.txt, Matching_Report.html.
 
-Waiting for later slices: the device-mesh, multi-process and retrieval
-branches of the reference.
+``retrieval_k`` adds each image's most similar images (pooled-descriptor
+retrieval) to a windowed pair list. Waiting for later slices: the
+device-mesh and multi-process branches of the reference (ROADMAP §1
+item 11).
 """
 
 from __future__ import annotations
@@ -99,6 +101,35 @@ def sequential_pairs(n: int, window: int) -> List[Tuple[int, int]]:
     ``window`` successors."""
     return [(i, j) for i in range(n)
             for j in range(i + 1, min(i + 1 + window, n))]
+
+
+def retrieval_pairs(descs, k: int = 8,
+                    exclude: Optional[set] = None) -> List[Tuple[int, int]]:
+    """Image-retrieval pair augmentation: top-``k`` most similar images per
+    image by pooled-descriptor similarity (one (V, V) product).
+
+    A windowed pair list on a sequential capture never connects temporally
+    distant views of the same place, so loop closures are lost; retrieval
+    recovers them at the cost of one product of pooled descriptors. The
+    pooled descriptor is the L2-normalized mean of an image's LIOP
+    descriptors (non-negative histograms, so the mean is a meaningful
+    bag-of-features signature). Deterministic given the features."""
+    data = descs.data                                   # (V, N, D)
+    m = descs.mask[..., None].to(data.dtype)
+    pooled = (data * m).sum(1) / torch.clamp_min(m.sum(1), 1.0)
+    pooled = pooled / torch.clamp_min(
+        torch.linalg.norm(pooled, dim=-1, keepdim=True), 1e-12)
+    sim = pooled @ pooled.T                             # (V, V)
+    V = sim.shape[0]
+    sim = sim - 2.0 * torch.eye(V, dtype=sim.dtype, device=sim.device)
+    nbr = torch.topk(sim, min(k, V - 1), dim=-1).indices.cpu().numpy()
+    out = set()
+    for i in range(V):
+        for j in nbr[i]:
+            pr = (i, int(j)) if i < int(j) else (int(j), i)
+            if exclude is None or pr not in exclude:
+                out.add(pr)
+    return sorted(out)
 
 
 def save_matches_txt(path: str, matches: Dict[Tuple[int, int], np.ndarray]):
@@ -411,6 +442,7 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
                         detector: str = "fast-akaze",
                         progress=None,
                         pairs: Optional[List[Tuple[int, int]]] = None,
+                        retrieval_k: int = 0,
                         device=None, seed: int = 0,
                         sample_provider: Optional[SampleProvider] = None
                         ) -> Dict:
@@ -418,7 +450,9 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
     with the stage's time split under ``time_features_s``,
     ``time_matching_s`` and ``time_filter_s`` (profiler spans
     ``compute_matches.{features,matching,filter}``). Runs on ``device``
-    (default cuda; raises if no card and the CPU was not asked for)."""
+    (default cuda; raises if no card and the CPU was not asked for).
+    ``retrieval_k`` with a ``pairs`` list adds each image's top-k most
+    similar images as pairs (stats key ``pairs_retrieval``)."""
     dev = runtime.resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
@@ -443,6 +477,12 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
                                               pad_to=256,
                                               padded_dim=MATCH_DIM,
                                               device=dev)
+        n_retrieval = 0
+        if retrieval_k and pairs is not None:
+            base = set(pairs)
+            extra = retrieval_pairs(descs, retrieval_k, exclude=base)
+            n_retrieval = len(extra)
+            pairs = sorted(base | set(extra))
         putative = match_all_pairs(kps, descs, cfg, pairs=pairs,
                                    progress=progress)
         sync()
@@ -466,6 +506,8 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
 
     stats = dict(filt.stats)
     stats["keypoints"] = counts
+    if n_retrieval:
+        stats["pairs_retrieval"] = n_retrieval
     stats["elapsed_s"] = time.time() - t0
     stats["time_features_s"] = t1 - t0
     stats["time_matching_s"] = t2 - t1

@@ -1,16 +1,16 @@
 """Triangulation (SfM) stage driver.
 
 Counterpart of ``regard3d_tpu/pipeline/triangulation_step.py``: features +
-filtered matches -> tracks -> the incremental2 engine with the MaxPair
-initializer -> artifacts: ``scene.npz`` (the ``sfm_data.bin`` role),
+filtered matches -> tracks -> the incremental engine (incremental2 with
+MaxPair, or v1 from the user's initial pair; optional GPS center priors)
+-> artifacts: ``scene.npz`` (the ``sfm_data.bin`` role),
 ``sfm_data.json``, ``cloud_and_poses.ply``, ``FinalColorized.ply``,
 ``Reconstruction_Report.html``, with the reference's residual statistics.
 
 Runs on ``device`` (default cuda; raises with no card unless the CPU is
-asked for). Waiting for later slices, each raising ``NotImplementedError``:
-the global engine, the v1 engine (user initial pair), the stellar
-initializer, GPS center priors, the sharded BA polish and float64 engines
-(ROADMAP §1).
+asked for). Waiting for later slices, each raising ``NotImplementedError``
+naming its ROADMAP §1 item: the stellar initializer, float64 engines, the
+global engine and the sharded BA polish.
 """
 
 from __future__ import annotations
@@ -155,14 +155,16 @@ def colorize_tracks(inputs, result, images: Sequence[np.ndarray]
     return colors
 
 
-def _check_params(params: TriangulationParams):
+def check_params(params: TriangulationParams):
+    """Raise ``NotImplementedError`` for the options not ported yet."""
     if params.engine == "global":
         raise NotImplementedError(
             "engine='global' waits for a later slice (ROADMAP §1 item 10)")
-    if params.engine == "incremental":
+    user_pair = params.engine == "incremental" and params.initial_pair
+    if params.initializer != "maxpair" and not user_pair:
         raise NotImplementedError(
-            "engine='incremental' (v1, user initial pair) waits for a later "
-            "slice (ROADMAP §1 item 7)")
+            f"initializer {params.initializer!r}: the stellar initializer "
+            "waits for a later slice (ROADMAP §1 item 6)")
     if params.dist_ba:
         raise NotImplementedError(
             "dist_ba=True (sharded BA) waits for a later slice (ROADMAP §1 "
@@ -171,10 +173,6 @@ def _check_params(params: TriangulationParams):
         raise NotImplementedError(
             "f64=True (float64 engines) waits for a later slice "
             "(ROADMAP §1 item 9)")
-    if params.use_gps:
-        raise NotImplementedError(
-            "use_gps=True (center priors) waits for a later slice "
-            "(ROADMAP §1 item 8)")
 
 
 def run_triangulation(matches_dir: str, out_dir: str,
@@ -183,12 +181,16 @@ def run_triangulation(matches_dir: str, out_dir: str,
                       models: np.ndarray,
                       params: TriangulationParams = TriangulationParams(),
                       image_names: Optional[List[str]] = None,
+                      center_priors: Optional[np.ndarray] = None,
                       seed: int = 0, device=None,
                       sample_provider: Optional[
                           incremental.SampleProvider] = None) -> Dict:
     """Full triangulation step; writes the artifacts; returns stats.
-    ``sample_provider``: the engine's draws (``sfm/incremental.py``)."""
-    _check_params(params)
+    ``engine="incremental"`` starts from ``params.initial_pair`` (None:
+    MaxPair, as the reference); ``center_priors`` (V, 3) anchor the result
+    when ``params.use_gps``. ``sample_provider``: the engine's draws
+    (``sfm/incremental.py``)."""
+    check_params(params)
     dev = runtime.resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
@@ -197,14 +199,16 @@ def run_triangulation(matches_dir: str, out_dir: str,
     inputs, table = build_sfm_inputs(matches_dir, len(images), intr_id, intr,
                                      models, image_sizes, params.matches_kind,
                                      device=dev)
+    init = params.initial_pair if params.engine == "incremental" else None
     result = incremental.run_incremental(
-        inputs, cfg=incremental.IncrementalConfig(
+        inputs, initial_pair=init, cfg=incremental.IncrementalConfig(
             refine_intrinsics=params.refine_intrinsics,
             initializer=params.initializer,
             ba_every=params.ba_every,
             ba_iterations=params.ba_iterations,
             final_ba_iterations=params.final_ba_iterations),
-        seed=seed, device=dev, sample_provider=sample_provider)
+        seed=seed, device=dev, sample_provider=sample_provider,
+        center_priors=(center_priors if params.use_gps else None))
 
     colors = colorize_tracks(inputs, result, images)
     scene = result_to_scene(result, inputs, image_sizes, colors)

@@ -1,15 +1,18 @@
-"""Incremental SfM engine (the incremental2 engine with the MaxPair
-initializer).
+"""Incremental SfM engine (incremental2 with the MaxPair initializer, and
+v1 with a user-chosen initial pair).
 
 Counterpart of ``regard3d_tpu/sfm/incremental.py`` (OpenMVG's
 ``SequentialSfMReconstructionEngine2`` as the reference drives it):
 
   initial pair (batched E/H AC-RANSAC over the most covisible pairs,
-  cheirality vote, parallax gate, scored scan) -> triangulate
+  cheirality vote, parallax gate, scored scan; or the user's pair with a
+  serial robust pose) -> triangulate
   -> { resect the group of best-covered views (batched P3P AC-RANSAC)
        -> retriangulate -> bundle adjust every ``ba_every`` views
        -> reject outlier observations } until no view is left
-  -> final BA (+ intrinsic refinement) and polish.
+  -> final BA (+ intrinsic refinement) and polish
+  -> with center priors (GPS in a local metric frame): Sim3 onto the
+     priors, then a BA with the center-prior term.
 
 The which-view-next loop stays on the host; every step inside it runs on
 the engine's device. Each phase opens a ``torch.profiler`` span
@@ -21,20 +24,22 @@ the reference's.
 Random draws: the reference draws its initializer and resection samples
 from a ``jax.random`` key chain. Here every batched AC-RANSAC call asks a
 ``sample_provider(kind, mask, iters, s) -> (B, iters, s)`` for its sample
-indices, with ``kind`` one of ``"init_e"``, ``"init_h"``, ``"resection"``
-and ``mask`` the (B, N) numpy mask of the call's rows, in the reference's
-call order. The default provider draws from one CPU ``torch.Generator`` per
+indices, with ``kind`` one of ``"init_e"``, ``"init_h"`` (MaxPair),
+``"init_pair"``, ``"init_pair_retry"`` (the user's pair: four attempts,
+then one last attempt that takes any decomposition), ``"resection"``, and
+``mask`` the (B, N) numpy mask of the call's rows, in the reference's call
+order. The default provider draws from one CPU ``torch.Generator`` per
 call, seeded from (seed, call index); parity tests replay the reference's
 key chain instead.
 
-Waiting for a later slice (each raises ``NotImplementedError``): the
-stellar initializer, the v1 user-chosen initial pair and center priors
-(ROADMAP §1).
+Waiting for a later slice (raises ``NotImplementedError``): the stellar
+initializer (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
@@ -44,7 +49,7 @@ from torch.profiler import record_function
 
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.ba import lm
-from regard3d_tpu_torch.core import cameras
+from regard3d_tpu_torch.core import cameras, metrics
 from regard3d_tpu_torch.kernels import geometry, ransac
 from regard3d_tpu_torch.sfm import tracks as tracks_mod
 from regard3d_tpu_torch.sfm.triangulate import (reprojection_residuals_px,
@@ -276,30 +281,97 @@ def _select_initial_pose(inputs: SfMInputs, table: tracks_mod.TrackTable,
     return None
 
 
+def _host_columns(inputs: SfMInputs, intr) -> Dict:
+    """Host copies of the index columns and of the intrinsics."""
+    return {"vid": inputs.view_id.cpu().numpy(),
+            "tid": inputs.track_id.cpu().numpy(),
+            "iid": inputs.intr_id.cpu().numpy(), "intr": intr.cpu().numpy()}
+
+
+def select_initial_pair(inputs: SfMInputs, table: tracks_mod.TrackTable,
+                        draws: SampleProvider, cfg: IncrementalConfig,
+                        num_views: int) -> Optional[Tuple[int, int]]:
+    """The pair the MaxPair initializer picks (the reference takes a key
+    where this takes a ``sample_provider``)."""
+    with torch.no_grad():
+        xn = _normalized_xy(inputs, inputs.intr).cpu().numpy()
+        sel = _select_initial_pose(inputs, table, draws, cfg, num_views, xn,
+                                   _host_columns(inputs, inputs.intr))
+    return (sel[0], sel[1]) if sel else None
+
+
+def _relative_pose(inputs: SfMInputs, xn: np.ndarray, i: int, j: int,
+                   draws: SampleProvider, cfg: IncrementalConfig, host: Dict,
+                   kind: str = "init_pair", attempts: int = 4,
+                   min_valid_frac: float = 0.7):
+    """Robust relative pose for a pair: AC-RANSAC E + decomposition, with a
+    cheirality acceptance gate. An E model can score well a-contrario yet
+    decompose into a twisted pose where only ~half the inliers sit in
+    front of both cameras; such draws are retried with fresh draws.
+
+    Returns (Rrel, trel, oi, oj, inl) with view j's pose in i's frame, or
+    None."""
+    oi, oj = _pair_obs(host["vid"], host["tid"], i, j)
+    n = len(oi)
+    if n < 16:
+        return None
+    cap = max(64, 1 << int(np.ceil(np.log2(n))))
+    x1 = np.zeros((1, cap, 2), xn.dtype)
+    x2 = np.zeros((1, cap, 2), xn.dtype)
+    x1[0, :n] = xn[oi]
+    x2[0, :n] = xn[oj]
+    mask = np.zeros((1, cap), bool)
+    mask[0, :n] = True
+    f = float(host["intr"][host["iid"][i], 0])
+    dev = inputs.xy.device
+    t = lambda a: torch.as_tensor(a, device=dev)
+    la = np.full((1,), math.log10(2.0), np.float32)
+    me = np.full((1,), (cfg.max_err_px / f) ** 2, np.float32)
+    best = None
+    for _ in range(attempts):
+        idx = draws(kind, mask, cfg.ransac_iters, 5)
+        re = ransac.acransac_e_batch(None, t(x1), t(x2), t(mask), t(la),
+                                     t(me), iters=cfg.ransac_iters,
+                                     idx=t(idx))
+        if not bool(re.valid[0]):
+            continue
+        inl = re.inliers[0].cpu().numpy()[:n]
+        Rrel, trel, nval = geometry.decompose_essential(
+            re.model, t(xn[oi[inl]])[None], t(xn[oj[inl]])[None])
+        frac = float(nval[0]) / max(int(re.num_inliers[0]), 1)
+        if best is None or frac > best[0]:
+            best = (frac, Rrel[0].cpu().numpy(), trel[0].cpu().numpy(), oi,
+                    oj, inl)
+        if frac >= min_valid_frac:
+            break
+    if best is None or best[0] < min_valid_frac:
+        return None
+    return best[1:]
+
+
 def run_incremental(inputs: SfMInputs,
                     initial_pair: Optional[Tuple[int, int]] = None,
                     cfg: IncrementalConfig = IncrementalConfig(),
                     seed: int = 0,
                     verbose: bool = False,
                     center_priors=None,
+                    prior_weight: float = 1.0,
                     device=None,
                     sample_provider: Optional[SampleProvider] = None
                     ) -> SfMResult:
-    """Run the incremental pipeline with the MaxPair initializer on
-    ``device`` (default cuda; raises with no card unless the CPU is asked
-    for). ``sample_provider``: see the module docstring."""
-    if initial_pair is not None:
-        raise NotImplementedError(
-            "the v1 user-chosen initial pair waits for a later slice "
-            "(ROADMAP §1 item 7)")
-    if cfg.initializer != "maxpair":
+    """Run the incremental pipeline on ``device`` (default cuda; raises with
+    no card unless the CPU is asked for). ``initial_pair=None`` selects the
+    pair (v2 MaxPair); passing a pair reproduces v1. ``sample_provider``:
+    see the module docstring.
+
+    ``center_priors``: optional (V, 3) camera-center priors in a local
+    metric frame (GPS -> ENU; NaN rows for views without one). The
+    reconstruction runs in a free gauge and is Sim3-aligned to the priors
+    before a final BA with the center-prior term at ``prior_weight``."""
+    if initial_pair is None and cfg.initializer != "maxpair":
         raise NotImplementedError(
             f"initializer {cfg.initializer!r}: only maxpair is ported; the "
             "stellar initializer waits for a later slice (ROADMAP §1 item 6)")
-    if center_priors is not None:
-        raise NotImplementedError(
-            "center priors (GPS anchoring) wait for a later slice "
-            "(ROADMAP §1 item 8)")
     dev = runtime.resolve_device(device)
     draws = sample_provider or default_provider(seed)
     inputs = inputs._replace(**{k: getattr(inputs, k).to(dev) for k in (
@@ -323,24 +395,33 @@ def run_incremental(inputs: SfMInputs,
     track_ok = np.zeros(T, bool)
     X = torch.zeros((T, 3), dtype=dtype, device=dev)
 
-    # host copies of the index columns and of the intrinsics, read once
-    vid_np = inputs.view_id.cpu().numpy()
-    tid_np = inputs.track_id.cpu().numpy()
-    iid_np = inputs.intr_id.cpu().numpy()
-    host = {"vid": vid_np, "tid": tid_np, "iid": iid_np,
-            "intr": intr.cpu().numpy()}
+    host = _host_columns(inputs, intr)          # read once
+    vid_np, tid_np, iid_np = host["vid"], host["tid"], host["iid"]
     table = tracks_mod.TrackTable(tid_np, vid_np,
                                   inputs.feature_id.cpu().numpy(), T)
 
-    # --- initialization: the MaxPair initial pair -------------------------
+    # --- initialization: the user's pair (v1) or MaxPair ------------------
     t_init0 = time.perf_counter()
     with record_function("triangulation.init"), torch.no_grad():
         xn = _normalized_xy(inputs, intr).cpu().numpy()
-        sel = _select_initial_pose(inputs, table, draws, cfg, V, xn, host)
-        if sel is None:
-            raise ValueError(
-                "no initial pair with a cheirality-consistent pose")
-        i0, j0, Rrel, trel, oi, oj, inl = sel
+        if initial_pair is not None:
+            # v1: the user's pair, a serial robust pose with retries
+            i0, j0 = initial_pair
+            rel = (_relative_pose(inputs, xn, i0, j0, draws, cfg, host)
+                   or _relative_pose(inputs, xn, i0, j0, draws, cfg, host,
+                                     kind="init_pair_retry", attempts=1,
+                                     min_valid_frac=0.0))
+            if rel is None:
+                raise ValueError(
+                    f"initial pair {initial_pair} has no robust E")
+            Rrel, trel, oi, oj, inl = rel
+        else:
+            sel = _select_initial_pose(inputs, table, draws, cfg, V, xn,
+                                       host)
+            if sel is None:
+                raise ValueError(
+                    "no initial pair with a cheirality-consistent pose")
+            i0, j0, Rrel, trel, oi, oj, inl = sel
         R[j0] = torch.as_tensor(Rrel, dtype=dtype, device=dev)
         C[j0] = torch.as_tensor(-Rrel.T @ trel, dtype=dtype, device=dev)
         pose_mask[[i0, j0]] = True
@@ -530,6 +611,39 @@ def run_incremental(inputs: SfMInputs,
     retriangulate()
     run_ba(cfg.ba_iterations, cfg.refine_intrinsics)
     retriangulate()
+
+    # --- GPS anchoring (the use-GPS option) --------------------------------
+    if center_priors is not None:
+        pri = np.asarray(center_priors, np.float64)
+        pm = pose_mask & np.isfinite(pri).all(axis=1)
+        if pm.sum() >= 3:
+            with record_function("triangulation.ba"):
+                C_np = C.cpu().numpy()
+                sim = metrics.umeyama(C_np[pm], pri[pm])
+                # x_cam = R_v (X - C_v); world transform X' = s R X + t:
+                # R'_v = R_v R^T, C'_v = s R C_v + t, X' likewise
+                Cn = sim.apply(C_np)
+                f = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)
+                R = f(np.einsum("vij,kj->vik", R.cpu().numpy(), sim.R))
+                C = f(Cn)
+                X = f(sim.apply(X.cpu().numpy()))
+                w = obs_active & track_ok[tid_np] & pose_mask[vid_np]
+                obs_ba = lm.BAObservations(
+                    view_id=vid, intr_id=g_obs, point_id=tid,
+                    model=inputs.models[g_obs], xy=inputs.xy,
+                    weight=f(w))
+                opts = lm.BAOptions(max_iterations=cfg.ba_iterations,
+                                    refine_intrinsics=cfg.refine_intrinsics,
+                                    huber_delta_px=cfg.huber_delta_px,
+                                    center_prior_weight=prior_weight)
+                out, _ = lm.bundle_adjust(
+                    lm.BAState(R=R, C=C, intr=intr, X=X), obs_ba, opts,
+                    fixed_pose_mask=torch.as_tensor(~pose_mask, device=dev),
+                    center_prior=f(np.where(pm[:, None], pri, Cn)),
+                    layout=ba_layout[0], device=dev)
+                R, C, intr, X = out.R, out.C, out.intr, out.X
+                sync()
+            retriangulate()
 
     with torch.no_grad():
         r2 = residuals_px().cpu().numpy()

@@ -29,8 +29,8 @@ leveling). The stages:
    chunks of faces; OBJ + MTL + PNG export on the host.
 
 Profiler spans: ``texture.visibility`` (projection, z-buffers, scores and
-mean colors) and ``texture.sample`` (the atlas texels). Not ported yet: the
-project-store entry point ``texture_project_mesh`` (with the project store).
+mean colors) and ``texture.sample`` (the atlas texels).
+``texture_project_mesh`` is the project-store entry point.
 """
 
 from __future__ import annotations
@@ -465,3 +465,29 @@ def write_textured_obj(prefix: str, mesh: TexturedMesh) -> str:
             f.write("f %d/%d %d/%d %d/%d\n" % (
                 face[0] + 1, t + 1, face[1] + 1, t + 2, face[2] + 1, t + 3))
     return obj_path
+
+
+def texture_project_mesh(project, densification_id: int, surface_ply: str,
+                         out_prefix: str, args, device=None) -> str:
+    """Project-store entry point (dispatch target of ``surface --colorize
+    textures`` without external texrecon), on ``cuda`` unless
+    ``device="cpu"``."""
+    from regard3d_tpu_torch.core import sfm_data
+    from regard3d_tpu_torch.export.ply import read_ply
+    from regard3d_tpu_torch.ingest import image_io
+
+    dobj = project.objects[densification_id]
+    scene = sfm_data.load_npz(project.paths(dobj.parent_id).scene_npz)
+    # lineage: pictureset -> matches -> triangulation -> densification;
+    # image_info lives on the pictureset (cli.py cmd_import)
+    m_obj = project.objects[project.objects[dobj.parent_id].parent_id]
+    infos = project.objects[m_obj.parent_id].params["image_info"]
+    images = [image_io.load_rgb(i["path"]) for i in infos]
+    surf = read_ply(surface_ply)
+    mesh = texture_mesh(
+        scene, images, surf.xyz, surf.faces,
+        texel_res=getattr(args, "texel_res", 8),
+        outlier_removal=getattr(args, "outlier_removal", "gauss_damping"),
+        seam_leveling=getattr(args, "seam_leveling", "global"),
+        device=device)
+    return write_textured_obj(out_prefix, mesh)

@@ -5,8 +5,10 @@ the JAX package, on the CPU (the stage end to end:
 Random draws: the port is handed the reference's own samples. ``Replay``
 walks the reference's key chain (``run_incremental``: ``split(key)`` for the
 initializer, then ``split(key, 3)`` per E attempt with ``split(k, 16)`` per
-block for E and H; ``split(key)`` and ``split(k, 16)`` per resection round)
-and draws with its ``_draw_samples`` on each call's mask.
+block for E and H; with a user's initial pair ``split(key, 3)`` instead, one
+``split`` of the first key per attempt and of the second for the last
+attempt; ``split(key)`` and ``split(k, 16)`` per resection round) and draws
+with its ``_draw_samples`` on each call's mask.
 
 What must agree on ``tests/test_incremental.py``'s ``synth_scene`` (8
 cameras, 300 points; pinhole and radial-K3): the initial pair, the posed
@@ -14,7 +16,9 @@ cameras, Sim3-aligned centers within 1e-3 of the scene extent, the
 triangulated tracks (Jaccard >= 0.99) and the rms residual (within 5%).
 The 5-point E solver is f32-rounding-bound in both packages (ROADMAP §3),
 so the initializer's winning E draw may differ; everything downstream
-runs from its pose.
+runs from its pose. With a user's initial pair (v1) and with GPS center
+priors (some rows NaN) the same agreement holds, and the anchored centres
+agree within 1e-3 of the extent with no alignment.
 """
 
 import jax
@@ -27,9 +31,11 @@ from regard3d_tpu.core import metrics as jmet
 from regard3d_tpu.core.types import RADIAL_K3
 from regard3d_tpu.kernels import ransac as jr
 from regard3d_tpu.sfm import incremental as jinc
+from regard3d_tpu.sfm import tracks as jtracks
 from regard3d_tpu_torch.core.types import sfm_inputs_from_numpy
 from regard3d_tpu_torch.pipeline import triangulation_step as tts
 from regard3d_tpu_torch.sfm import incremental as tinc
+from regard3d_tpu_torch.sfm import tracks as ttracks
 from tests.test_incremental import build_inputs, synth_scene
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -41,14 +47,23 @@ _draw = jax.jit(jr._draw_samples, static_argnums=(2, 3))
 class Replay:
     """A ``sample_provider`` that hands out the reference's draws."""
 
-    def __init__(self, seed=0, group=16):
-        self.main, self.init = jax.random.split(jax.random.PRNGKey(seed))
+    def __init__(self, seed=0, group=16, initial_pair=False):
+        key = jax.random.PRNGKey(seed)
+        if initial_pair:
+            self.main, self.pair, self.retry = jax.random.split(key, 3)
+        else:
+            self.main, self.init = jax.random.split(key)
         self.group = 1 << int(np.ceil(np.log2(group)))
         self.k_h = None
         self.calls = []
 
     def __call__(self, kind, mask, iters, s):
         self.calls.append(kind)
+        if kind in ("init_pair", "init_pair_retry"):
+            name = "pair" if kind == "init_pair" else "retry"
+            key, k = jax.random.split(getattr(self, name))
+            setattr(self, name, key)
+            return np.array(_draw(k, jnp.asarray(mask[0]), iters, s))[None]
         if kind == "init_e":
             self.init, k_e, self.k_h = jax.random.split(self.init, 3)
             keys = jax.random.split(k_e, 16)
@@ -134,19 +149,73 @@ def test_port_draws_give_a_full_reconstruction():
     np.testing.assert_array_equal(runs[0].track_ok, runs[1].track_ok)
 
 
+@pytest.mark.parametrize("case", ["initial_pair", "center_priors"])
+def test_engine_options_match_reference(case):
+    """v1 (the user's initial pair, the second-best covisible pair here)
+    and GPS anchoring (noisy true centres, two rows NaN) against the
+    reference with its draws."""
+    rng = np.random.default_rng(1)
+    scene = synth_scene(rng)
+    inputs, table = build_inputs(scene)
+    kw = {}
+    if case == "initial_pair":
+        cand, _ = jtracks.covisibility_pairs(table, 8, min_count=30)
+        kw["initial_pair"] = (int(cand[1][0]), int(cand[1][1]))
+    else:
+        pri = scene["Cs"] + 0.01 * rng.normal(size=scene["Cs"].shape)
+        pri[[2, 5]] = np.nan
+        kw["center_priors"] = pri
+    rj = jinc.run_incremental(inputs, cfg=jinc.IncrementalConfig(**CFG),
+                              **kw)
+    replay = Replay(initial_pair=case == "initial_pair")
+    rt = tinc.run_incremental(port_inputs(inputs),
+                              cfg=tinc.IncrementalConfig(**CFG),
+                              device="cpu", sample_provider=replay, **kw)
+    assert rt.stats["num_cameras"] == rj.stats["num_cameras"] == 8
+    extent = np.ptp(scene["Cs"], axis=0).max()
+    compare(rj, rt, extent)
+    if case == "initial_pair":
+        assert rt.stats["init_pair"] == kw["initial_pair"]
+        assert replay.calls[0] == "init_pair"
+        assert "init_e" not in replay.calls
+    else:
+        # anchored in the priors' frame: no alignment needed
+        err = np.linalg.norm(rt.C.numpy() - np.asarray(rj.C), axis=1).max()
+        assert err <= 1e-3 * extent, err
+        assert jmet.ate_rmse(rt.C.numpy(), scene["Cs"], align=False) < 0.05
+        # the MaxPair choice alone, from another key
+        key = jax.random.PRNGKey(3)
+        rp = Replay()
+        rp.init = key
+        ttable = ttracks.TrackTable(*(np.asarray(a) for a in (
+            table.track_id, table.view_id, table.feature_id)),
+            table.num_tracks)
+        assert tinc.select_initial_pair(
+            port_inputs(inputs), ttable, rp, tinc.IncrementalConfig(**CFG),
+            8) == jinc.select_initial_pair(
+            inputs, table, key, jinc.IncrementalConfig(**CFG), 8)
+
+
 def test_unported_options_raise():
+    """The stellar initializer, the global engine, float64 and the
+    sharded BA still raise, naming their ROADMAP items; stellar is
+    ignored with a user's initial pair, as in the reference."""
     rng = np.random.default_rng(0)
     inputs, _ = build_inputs(synth_scene(rng, n_cams=3, n_pts=40))
     ti = port_inputs(inputs)
-    for kw in (dict(initial_pair=(0, 1)), dict(center_priors=np.zeros((3, 3))),
-               dict(cfg=tinc.IncrementalConfig(initializer="stellar"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tinc.run_incremental(ti, device="cpu", **kw)
-    for kw in (dict(engine="global"), dict(engine="incremental",
-                                           initial_pair=(0, 1)),
-               dict(dist_ba=True), dict(f64=True), dict(use_gps=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 6"):
+        tinc.run_incremental(ti, device="cpu", cfg=tinc.IncrementalConfig(
+            initializer="stellar"))
+    for kw, item in ((dict(engine="global"), 10),
+                     (dict(initializer="stellar"), 6),
+                     (dict(engine="incremental", initializer="stellar"), 6),
+                     (dict(dist_ba=True), 11), (dict(f64=True), 9)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP §1 item {item}"):
             tts.run_triangulation("/nonexistent", "/nonexistent", [],
                                   np.zeros(0), np.zeros((1, 9)),
                                   np.zeros(1), tts.TriangulationParams(**kw),
                                   device="cpu")
+    tts.check_params(tts.TriangulationParams(
+        engine="incremental", initial_pair=(0, 1), initializer="stellar",
+        use_gps=True))

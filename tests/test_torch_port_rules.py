@@ -5,7 +5,9 @@
   ``chip_smoke.py``, and dynamically by importing every module in a fresh
   interpreter.
 * Entry points run on ``cuda`` unless the caller asks for the CPU, and
-  raise rather than fall back to the CPU when there is no card.
+  raise rather than fall back to the CPU when there is no card; so do the
+  command line's compute subcommands (``--device``), and its unported
+  ``launch`` raises naming its ROADMAP item.
 * The CUDA kernel wrappers take the plain version only for CPU tensors;
   anything else goes to the kernel or raises.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from regard3d_tpu_torch import cli as tcli
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.ba import lm as tlm
 from regard3d_tpu_torch.core.types import Scene
@@ -99,6 +102,19 @@ def test_port_modules_load_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
+    # the command line, the project store, host ingest and the sinks
+    assert {"regard3d_tpu_torch.cli", "regard3d_tpu_torch.pipeline.project",
+            "regard3d_tpu_torch.pipeline.settings",
+            "regard3d_tpu_torch.pipeline.preview",
+            "regard3d_tpu_torch.pipeline.external",
+            "regard3d_tpu_torch.ingest.exif",
+            "regard3d_tpu_torch.ingest.sensor_db",
+            "regard3d_tpu_torch.ingest.intrinsics",
+            "regard3d_tpu_torch.ingest.geodesy",
+            "regard3d_tpu_torch.export.openmvs",
+            "regard3d_tpu_torch.export.sfm_output",
+            "regard3d_tpu_torch.export.external_mvs",
+            "regard3d_tpu_torch.tools.photos"} <= set(port_modules())
 
 
 @pytest.fixture()
@@ -143,6 +159,23 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         tlm.bundle_adjust(state, obs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tacc.run_dataset("fountain")
+
+
+@pytest.mark.parametrize("cmd", tcli.COMPUTE_COMMANDS)
+def test_cli_compute_subcommands_raise_without_a_card(cmd, no_card,
+                                                      tmp_path):
+    """(g) with no GPU and no ``--device cpu``, every compute subcommand
+    raises before it reads or writes the project; ``launch`` raises naming
+    ROADMAP item 11."""
+    proj = str(tmp_path / "proj")
+    extra = ["--format", "nvm"] if cmd == "export" else []
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main([cmd, proj, *extra])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["--device", "cuda", cmd, proj, *extra])
+    assert not os.path.exists(proj)
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
+        tcli.main(["launch", "-n", "2", "--", cmd, proj])
 
 
 def _posed_scene(n=2):
