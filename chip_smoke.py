@@ -22,7 +22,9 @@ run if it fails:
     main paths' shapes (the stage's own descriptors): K1 in f32 and bf16,
     the single-pair call in f32 and bf16 with ragged M != N (split over
     column ranges), the two ablations of the matcher profile at the
-    kernel's column tile; time kernel, plain version and ``torch.bmm`` /
+    kernel's column tile, batched single pairs (``match_pairs_batched``,
+    K1 over the table (p, p), one launch); time kernel, plain version and
+    ``torch.bmm`` /
     ``torch.mm`` of the same distance products (a yardstick only; none for
     ``min_only``), and split
     the single-pair call's host time per call between its wrapper, its
@@ -32,8 +34,9 @@ run if it fails:
     one mma tile and across two column ranges keep the lowest column with
     d2 == d1; the bf16 kernel's instance for D set at run time agrees at
     D = 256;
-(e) where the time goes: the stage again, warm, once on the host clock and
-    once under ``torch.profiler``; per phase (the stage's own profiler
+(e) where the time goes: the stage again on its first 4 views (6 pairs),
+    warm, once on the host clock and once under ``torch.profiler``; per
+    phase (the stage's own profiler
     spans) the host time, the device's busy time and idle share, the number
     of device operations and the largest kernels, as one ``profile`` JSON
     line;
@@ -53,8 +56,27 @@ run if it fails:
     per engine span (``triangulation.<phase>``) the host time, the device's
     busy time and idle share and the number of device operations. One
     ``sfm`` JSON line;
+(l) the engine menu on phase (b)'s matches at full width:
+    ``run_triangulation`` with the global engine (on ``matches.e.txt``) and
+    with the stellar initializer, each under the profiler and held to (g)'s
+    gates and artifact checks; per engine span (``triangulation.<phase>``)
+    the host time, device busy time, idle share and operations, the
+    stellar run's pod size; one ``engines`` JSON line;
+(k) the scale axis at full width: ``regard3d_tpu_torch.tools.scale.
+    run_scale`` on the synthetic city's 200-view open corridor (256 px,
+    window 8, no retrieval: 1564 pairs, 1024 keypoints, 1024 RANSAC
+    iterations, BA every 25 views, 12 / 100 iterations, focal at 1.03x;
+    ``make_city`` renders the views in a process of its own started before
+    (j), and ``run_scale`` reads them from its work directory).
+    Fails unless >= 95% of the views are posed, the ATE after Sim3 is <=
+    0.5% of the trajectory extent (``bench_scale.py``'s gates) and K1 f32
+    was launched once per 64 pairs (25 times). One ``scale`` JSON line
+    beside SCALE200.json's record (a TPU run of an older engine: set beside,
+    not a gate). Then K1 f32 at that path's shape (64 window pairs, N =
+    1024) against its plain version, timed beside its bound and
+    ``torch.bmm``;
 (h) the radial-K3 path: ``regard3d_tpu_torch.tools.accuracy.run_dataset(
-    "fountain_rk3")`` (320 px, 2048 keypoints, 2048 RANSAC iterations,
+    "fountain_rk3")`` (320 px, 2048 keypoints, 512 RANSAC iterations,
     radial-K3 with zero-initialized distortion recovered by BA) must meet
     the reference's gates; its row is printed beside ACCURACY.json's row
     for the same dataset (an ``accuracy`` JSON line);
@@ -69,7 +91,10 @@ run if it fails:
     fountain's quads (the GATE_* constants) and every artifact reads back.
     The run is profiled: per span (``densify.*``, ``surface.*``,
     ``texture.*``) the host time, device busy time, idle share, operation
-    count and largest kernels; one ``dense`` JSON line;
+    count and largest kernels; the grid statistics of the cloud handed to
+    ``reconstruct`` (bounding box and diagonal, cell size, occupied cells
+    and points per cell, faces before and after the trim); one ``dense``
+    JSON line;
 (j) the README's quick start through the command line, first of all the
     phases (before this process touches the card, whatever the card's
     compute mode): phase (b)'s 11 views written as JPEGs (quality 95) with
@@ -90,13 +115,17 @@ run if it fails:
     0.08 RMS of the truth with no alignment; every export parses; the
     dense cloud and mesh meet (i)'s geometry gates, the two surfaces'
     reconstructs of one cloud give the same mesh bit for bit and the
-    textured model reads back; no kernel was rebuilt. One ``cli`` JSON line with each
-    command's wall time (process start included) and ``running_time_s``;
+    textured model reads back; no kernel was rebuilt. Steps that only read
+    the project run beside the next writing step. One ``cli`` JSON line
+    with each command's wall time (process start included),
+    ``running_time_s`` and the grid of the cloud handed to ``reconstruct``
+    (bounding box, cell, occupied cells, faces after the trim);
 (d) print the ``kernels`` JSON line (launches from the run of the path each
     kernel lies on: (b), its flann run, or (f), and K1's launches in (j)'s
-    ``matches`` as ``launches_cli``; (g), (h) and (i) launch no kernel of
-    their own), then the card's name and power limit, and the final
-    ``{"ok": true, ...}`` line.
+    ``matches`` as ``launches_cli``, in (k)'s run as ``launches_scale``
+    with the timings at (k)'s shape under ``scale``; (g), (h), (i) and (l)
+    launch no kernel of their own), then the card's name and power limit,
+    and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -122,35 +151,33 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 N_CAMS, HW, MAX_KP, PAIR_BLOCK = 11, 1024, 4096, 64
+PROFILE_VIEWS = 4                # (e): the profiled stage's views
+ACCURACY_ITERS = 512             # (h): RANSAC iterations
 PHASES = ("features", "matching", "filter")
 SFM_PHASES = ("init", "resection", "triangulation", "ba", "outlier")
+GLOBAL_PHASES = ("motions", "averaging", "triangulation", "ba", "outlier")
+SCALE_VIEWS = 200                # (k): SCALE200.json's corridor
 ATE_BOUND = 0.08                 # bench_accuracy.GATES
 
 # (i) the dense slice at the CLI's defaults for --method tpu
-# (regard3d_tpu/pipeline/external.py:135-138, :229-234, :263-267)
-DENSE_KW = dict(level=1, num_planes=96, wsize=7, threshold=0.7,
-                num_sources=6, csize=2, min_image_num=3)
+# (regard3d_tpu/pipeline/external.py:229-234, :263-267; densify_scene's at
+# :135-138 are tools/dense_normals.DENSE_KW)
 SURFACE_KW = dict(depth=8, samples_per_node=1.0, point_weight=4.0,
                   trim_threshold=7.0)
 DENSE_SPANS = ("densify.sweep", "densify.fusion", "surface.splat",
                "surface.solve", "surface.marching", "surface.trim",
                "texture.visibility", "texture.sample")
-# the fountain stand-in's three quads (origin, u, v), copied from
-# regard3d_tpu/ingest/synth.py:164-166 (each a rectangle: u . v = 0)
-FOUNTAIN_QUADS = np.array([
-    [[-5, -3, 2], [10, 0, 0], [0, 6, 0]],               # back wall
-    [[-1.2, -1.2, 0.6], [2.4, 0, 0], [0, 2.4, 0.9]],    # slab
-    [[-5, 3, -4], [10, 0, 0], [0, 0, 6]],               # ground
-], np.float64)
-# geometry gates of (i); distances are fractions of the scene extent (the
-# diagonal of the quads' bounding box)
+# geometry gates of (i) against the fountain's quads
+# (tools/dense_normals.dense_geometry); distances are fractions of the
+# scene extent (the diagonal of the quads' bounding box)
 GATE_CLOUD_TOL, GATE_CLOUD_FRAC = 0.01, 0.90
 # set from the first card run (PERF.md §6, PR 4): normals of 7x7-smoothed
 # 512^2 depth maps gave a median |cos| of 0.888 on (g)'s scene and on the
 # exact poses alike; the window is fixed in pixels, so the finer the map the
 # more of the sweep's depth noise reaches the normals. The reference gives
 # the same normals on the same depth maps, and the same statistic on the
-# fountain at 256 px (tests/test_torch_mvs.py)
+# fountain at 256 px (tests/test_torch_mvs.py). tools/dense_normals.py
+# takes those readings again, outside this script's time budget
 GATE_NORMAL_COS = 0.85
 GATE_MIN_POINTS = 50_000         # 11 views x 256^2 grid cells at csize=2
 GATE_SURFACE_TOL, GATE_SURFACE_FRAC = 0.02, 0.80
@@ -241,7 +268,8 @@ def run_stage(ds, out):
     """The main path: the port's stage entry point at the smoke's shapes."""
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     return cm.run_compute_matches(ds["images"], out, cfg=cm.MatchConfig(),
-                                  focals=np.full(N_CAMS, ds["f"] * 1.03),
+                                  focals=np.full(len(ds["images"]),
+                                                 ds["f"] * 1.03),
                                   max_keypoints=MAX_KP)
 
 
@@ -421,6 +449,40 @@ def host_split(match_mod, a, b, mb, ab, bb, bf16):
     }
 
 
+def kernel_row(name, run, plain, lib, P, M, N, D, in_bytes, out_words,
+               bf16, replaces, compare, tag="(c)"):
+    """One kernel against its plain version on the same inputs, timed
+    beside its bound, its plain version and a library call: the row of the
+    ``kernels`` line (``launches`` filled in by the caller)."""
+    got = run()
+    torch.cuda.synchronize()
+    err = compare(name, got, plain())
+    ms = cuda_ms(run, reps=20)
+    plain_ms = cuda_ms(plain, reps=3, warmup=1)
+    lib_ms = cuda_ms(lib, reps=10) if lib is not None else None
+    flops = 2.0 * P * M * N * D
+    nbytes = in_bytes + out_words * P * M * 4
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    row = {
+        "name": name, "route": "cuda",
+        "source": "regard3d_tpu_torch/csrc/match_top2.cu",
+        "replaces": replaces, "launches": None,
+        "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": lib_ms,
+        "shape": {"P": P, "M": M, "N": N, "D": D,
+                  "dtype": "bfloat16" if bf16 else "float32"},
+        "tflops": flops / (ms * 1e-3) / 1e12,
+    }
+    lib_s = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
+    log(f"{tag} {name} (P={P} M={M} N={N}): {ms:.4f} ms (plain "
+        f"{plain_ms:.3f} ms, library {lib_s}, bound {row['bound_ms']:.4f} "
+        f"ms, {row['tflops']:.1f} TFLOP/s)")
+    return row
+
+
 def phase_kernels(desc, mask, parr):
     """(c) every kernel against its plain version at the main paths'
     shapes, timed beside its bound, its plain version and a library call."""
@@ -432,37 +494,10 @@ def phase_kernels(desc, mask, parr):
     log(f"(c) main-path shapes: B={B} N={N} D={D} P={P}")
     rows = []
 
-    def entry(name, run, plain, lib, M, Nn, in_bytes, out_words, bf16,
-              replaces, compare):
-        got = run()
-        torch.cuda.synchronize()
-        err = compare(name, got, plain())
-        ms = cuda_ms(run, reps=20)
-        plain_ms = cuda_ms(plain, reps=3, warmup=1)
-        lib_ms = cuda_ms(lib, reps=10) if lib is not None else None
+    def entry(name, M, Nn, **kw):
         Pn = P if name.startswith("l2_top2_block") else 1
-        flops = 2.0 * Pn * M * Nn * D
-        nbytes = in_bytes + out_words * Pn * M * 4
-        peak = PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-        row = {
-            "name": name, "route": "cuda",
-            "source": "regard3d_tpu_torch/csrc/match_top2.cu",
-            "replaces": replaces, "launches": None,
-            "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": lib_ms,
-            "shape": {"P": Pn, "M": M, "N": Nn, "D": D,
-                      "dtype": "bfloat16" if bf16 else "float32"},
-            "tflops": flops / (ms * 1e-3) / 1e12,
-        }
-        rows.append(row)
-        lib_s = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
-        log(f"(c) {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms, library "
-            f"{lib_s}, bound {row['bound_ms']:.4f} ms, "
-            f"{row['tflops']:.1f} TFLOP/s)")
-        return row
+        rows.append(kernel_row(name, P=Pn, M=M, N=Nn, D=D, **kw))
+        return rows[-1]
 
     # (rtol, atol) of d1/d2: both sides sum exact products in f32 in other
     # orders; bf16's looser rtol covers the tensor cores' adder tree
@@ -530,6 +565,23 @@ def phase_kernels(desc, mask, parr):
                   f"mm_only ran in {row['ms']:.4f} ms, under its tensor-core "
                   f"bound {row['bound_ms']:.4f} ms: almost all of the product "
                   f"was removed")
+    # batched single pairs (M != N, ragged) reach K1 over the pair table
+    # (p, p), one launch
+    A = desc[pl[:3, 0], :1000].contiguous()
+    Bt = desc[pl[:3, 1], :777].contiguous()
+    ma, mb = mask[pl[:3, 0], :1000], mask[pl[:3, 1], :777]
+    before = match_mod.LAUNCHES["l2_top2_block_f32"]
+    got = match_mod.match_pairs_batched(A, ma, Bt, mb)
+    torch.cuda.synchronize()
+    want = match_mod.match_pairs_batched(A, ma, Bt, mb, use_kernel=False)
+    check(match_mod.LAUNCHES["l2_top2_block_f32"] == before + 1,
+          "match_pairs_batched did not launch K1 once")
+    same = (got[0] == want[0]).float().mean().item()
+    check(same >= 0.999 and (got[2] == want[2]).float().mean().item()
+          >= 0.999, f"match_pairs_batched: idx/ok agree on {same:.5f}")
+    err = _close("match_pairs_batched", got[1], want[1], 1e-5, 1e-5)
+    log(f"(c) match_pairs_batched (3 x 1000 x 777): K1 launched once, idx "
+        f"equal on {same:.6f}, max |d1 err| {err:.3e}")
     return rows
 
 
@@ -624,10 +676,13 @@ def phase_profile(ds, workdir):
     (``compute_matches.<phase>``) in which it starts. Idle share = 1 -
     device busy time (union of kernel, copy and memset intervals) / host
     time of the phase. Reads the profiler's raw events: building its
-    per-op event tree for ~3M events would take minutes."""
+    per-op event tree for ~3M events would take minutes. On the first
+    PROFILE_VIEWS views (the profiler's cost grows with the events it
+    records, ~15 us each on the card's host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ds = dict(ds, images=ds["images"][:PROFILE_VIEWS])
     warm = run_stage(ds, os.path.join(workdir, "warm"))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -660,11 +715,13 @@ def phase_profile(ds, workdir):
         log(f"(e) {ph}: host {host:.3f} s, device busy {busy:.3f} s, idle "
             f"share {1.0 - busy / host:.3f}, {len(ops)} device ops")
         check(len(ops) > 0, f"phase {ph} ran nothing on the device")
-    log(json.dumps({"profile": rows, "stage_warm_s": warm["elapsed_s"]}))
+    log(json.dumps({"profile": rows, "stage_warm_s": warm["elapsed_s"],
+                    "views": PROFILE_VIEWS}))
 
 
-def run_sfm(ds, matches, out):
-    """The triangulation stage's main path at the smoke's shapes."""
+def run_sfm(ds, matches, out, **params):
+    """The triangulation stage at the smoke's shapes; ``params`` of
+    ``TriangulationParams`` (none: the main path, incremental2 + MaxPair)."""
     from regard3d_tpu_torch.core.types import PINHOLE
     from regard3d_tpu_torch.pipeline import triangulation_step as ts
     intr = np.zeros((1, 9), np.float32)
@@ -673,7 +730,44 @@ def run_sfm(ds, matches, out):
                                 intr_id=np.zeros(N_CAMS, np.int32),
                                 intr=intr,
                                 models=np.asarray([PINHOLE], np.int32),
-                                params=ts.TriangulationParams())
+                                params=ts.TriangulationParams(**params))
+
+
+def check_sfm(ds, out, stats, tag):
+    """A triangulation run's gates and artifacts: every camera posed, ATE
+    after Sim3 within the bound, median residual < 1 px, ``scene.npz``
+    loads back, ``sfm_data.json`` holds every extrinsic and one structure
+    entry per live track, both PLYs read back. Returns (scene, ATE)."""
+    from regard3d_tpu_torch.core import metrics
+    from regard3d_tpu_torch.core.sfm_data import load_npz
+    from regard3d_tpu_torch.export import ply
+    scene = load_npz(os.path.join(out, "scene.npz"))
+    pm = scene.poses.mask.numpy()
+    ate = metrics.ate_rmse(scene.poses.C.numpy()[pm],
+                           ds["Cs"][np.nonzero(pm)[0]])
+    with open(os.path.join(out, "sfm_data.json")) as fh:
+        sfm = json.load(fh)
+    clouds = {n: ply.read_ply(os.path.join(out, n)) for n in
+              ("cloud_and_poses.ply", "FinalColorized.ply")}
+    log(f"{tag} {stats['num_cameras']}/{N_CAMS} cameras, "
+        f"{stats['num_tracks']} tracks, ATE {ate:.5f}, median residual "
+        f"{stats['residual_median']:.4f} px")
+    check(stats["num_cameras"] == N_CAMS,
+          f"{tag} {stats['num_cameras']} of {N_CAMS} cameras posed")
+    check(ate <= ATE_BOUND, f"{tag} ATE {ate:.4f} > {ATE_BOUND}")
+    check(stats["residual_median"] < 1.0,
+          f"{tag} median residual {stats['residual_median']:.3f} px")
+    check(len(sfm["extrinsics"]) == N_CAMS
+          and len(sfm["structure"]) == stats["num_tracks"]
+          and len(sfm["views"]) == N_CAMS,
+          f"{tag} sfm_data.json: {len(sfm['extrinsics'])} extrinsics, "
+          f"{len(sfm['structure'])} structure entries")
+    check(len(clouds["FinalColorized.ply"].xyz) == stats["num_tracks"]
+          and len(clouds["cloud_and_poses.ply"].xyz)
+          == stats["num_tracks"] + N_CAMS, f"{tag} PLY vertex counts")
+    check(bool(np.isfinite(scene.landmarks.X.numpy()).all()),
+          f"{tag} non-finite landmarks")
+    return scene, ate
 
 
 def span_table(events, names):
@@ -745,9 +839,6 @@ def phase_sfm(ds, matches, workdir):
     the determinism of BA, and where its time goes by engine span (one run,
     under the profiler)."""
     from torch.profiler import ProfilerActivity, profile
-    from regard3d_tpu_torch.core import metrics
-    from regard3d_tpu_torch.core.sfm_data import load_npz
-    from regard3d_tpu_torch.export import ply
 
     out = os.path.join(workdir, "sfm")
     torch.cuda.reset_peak_memory_stats()
@@ -757,32 +848,7 @@ def phase_sfm(ds, matches, workdir):
         stats = run_sfm(ds, matches, out)
     elapsed = time.time() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    scene = load_npz(os.path.join(out, "scene.npz"))
-    pm = scene.poses.mask.numpy()
-    ate = metrics.ate_rmse(scene.poses.C.numpy()[pm],
-                           ds["Cs"][np.nonzero(pm)[0]])
-    with open(os.path.join(out, "sfm_data.json")) as fh:
-        sfm = json.load(fh)
-    clouds = {n: ply.read_ply(os.path.join(out, n)) for n in
-              ("cloud_and_poses.ply", "FinalColorized.ply")}
-    log(f"(g) {stats['num_cameras']}/{N_CAMS} cameras, "
-        f"{stats['num_tracks']} tracks, ATE {ate:.5f}, median residual "
-        f"{stats['residual_median']:.4f} px, {elapsed:.1f} s")
-    check(stats["num_cameras"] == N_CAMS,
-          f"{stats['num_cameras']} of {N_CAMS} cameras posed")
-    check(ate <= ATE_BOUND, f"ATE {ate:.4f} > {ATE_BOUND}")
-    check(stats["residual_median"] < 1.0,
-          f"median residual {stats['residual_median']:.3f} px")
-    check(len(sfm["extrinsics"]) == N_CAMS
-          and len(sfm["structure"]) == stats["num_tracks"]
-          and len(sfm["views"]) == N_CAMS,
-          f"sfm_data.json: {len(sfm['extrinsics'])} extrinsics, "
-          f"{len(sfm['structure'])} structure entries")
-    check(len(clouds["FinalColorized.ply"].xyz) == stats["num_tracks"]
-          and len(clouds["cloud_and_poses.ply"].xyz)
-          == stats["num_tracks"] + N_CAMS, "PLY vertex counts")
-    check(bool(np.isfinite(scene.landmarks.X.numpy()).all()),
-          "non-finite landmarks")
+    scene, ate = check_sfm(ds, out, stats, f"(g) {elapsed:.1f} s:")
     ba = _bit_identical_ba(scene)
 
     # where the time goes, by engine span
@@ -807,64 +873,161 @@ def phase_sfm(ds, matches, workdir):
         "focal_gt": float(ds["f"]), "ba_repeat": ba, "spans": rows}}))
 
 
-def quad_distances(P):
-    """Distance of each point (N, 3) to each fountain quad: (N, 3)."""
-    out = []
-    for o, u, v in FOUNTAIN_QUADS:
-        rel = P - o
-        s = np.clip(rel @ u / (u @ u), 0.0, 1.0)
-        t = np.clip(rel @ v / (v @ v), 0.0, 1.0)
-        out.append(np.linalg.norm(rel - s[:, None] * u - t[:, None] * v,
-                                  axis=1))
-    return np.stack(out, 1)
+def phase_engines(ds, matches, workdir):
+    """(l) the engine menu on phase (b)'s matches at full width: the global
+    engine (``matches.e.txt``) and the stellar initializer, each through
+    ``run_triangulation`` under the profiler, each held to (g)'s gates and
+    artifact checks, with its per-span profile; one ``engines`` line."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for tag, params, phases in (
+            ("global", dict(engine="global"), GLOBAL_PHASES),
+            ("stellar", dict(initializer="stellar"), SFM_PHASES)):
+        run_dir = os.path.join(workdir, f"sfm_{tag}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            stats = run_sfm(ds, matches, run_dir, **params)
+        elapsed = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _, ate = check_sfm(ds, run_dir, stats, f"(l) {tag} {elapsed:.1f} s:")
+        rows = span_table(prof.profiler.kineto_results.events(),
+                          ["triangulation." + ph for ph in phases])
+        for r in rows:
+            r["phase"] = r.pop("span")[len("triangulation."):]
+            log(f"(l) {tag} {r['phase']}: {r['spans']} spans, host "
+                f"{r['host_s']:.3f} s, device busy {r['device_busy_s']:.3f} "
+                f"s, {r['device_ops']} device ops")
+        check(sum(r["device_ops"] for r in rows) > 0,
+              f"(l) {tag} ran nothing on the device")
+        out[tag] = {
+            "params": params, "cameras": stats["num_cameras"],
+            "tracks": stats["num_tracks"],
+            "observations": stats["num_observations"], "ate": ate,
+            "rms_px": stats["rms_px"],
+            "residual_median_px": stats["residual_median"],
+            "elapsed_profiled_s": elapsed, "peak_device_gb": peak_gb,
+            "spans": rows,
+            **{k: stats[k] for k in ("num_relative_motions", "init_hub",
+                                     "stellar_pod_size", "init_pair",
+                                     "profile") if k in stats}}
+    log(json.dumps({"engines": out}))
 
 
-def scene_extent() -> float:
-    o, u, v = FOUNTAIN_QUADS[:, 0], FOUNTAIN_QUADS[:, 1], FOUNTAIN_QUADS[:, 2]
-    corners = np.concatenate([o, o + u, o + v, o + u + v])
-    return float(np.linalg.norm(corners.max(0) - corners.min(0)))
+# (k)'s render: ``make_city`` in a process of its own, started first, so
+# the host renders while the card runs the earlier phases; ``run_scale``
+# reads the result from its work directory
+RENDER = """import sys, time
+import numpy as np
+from regard3d_tpu_torch.ingest import synth
+t0 = time.time()
+ds = synth.make_city(n_cams=int(sys.argv[2]), hw=256, loop=False)
+np.savez(sys.argv[1], images=np.stack(ds["images"]), Cs=ds["Cs"],
+         f=ds["f"], hw=ds["hw"])
+print(time.time() - t0)
+"""
+
+
+def start_render(workdir):
+    """Start (k)'s render; returns (the process, the scale work dir)."""
+    wd = os.path.join(workdir, "scale")
+    os.makedirs(wd)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", RENDER, os.path.join(wd, "render.npz"),
+         str(SCALE_VIEWS)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, wd
+
+
+def phase_scale(render, wd):
+    """(k) the scale axis at full width: ``tools/scale.run_scale`` on the
+    200-view open corridor at 256 px, window 8, no retrieval (SCALE200's
+    configuration: 1564 pairs), 1024 keypoints and the bench's other
+    defaults, on the views ``start_render`` rendered; its gates, K1 f32
+    launched once per 64 pairs, one ``scale`` line beside SCALE200.json's
+    record. Returns K1's launches and the run's match directory."""
+    from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.tools import scale
+    t0 = time.time()
+    out, err = render.communicate(timeout=1200)
+    check(render.returncode == 0, f"(k) render failed: {err[-2000:]}")
+    render_s = float(out.split()[-1])
+    log(f"(k) rendered {SCALE_VIEWS} views in {render_s:.1f} s (beside the "
+        f"earlier phases; waited {time.time() - t0:.1f} s)")
+    match_mod.reset_launch_counts()
+    t0 = time.time()
+    r = scale.run_scale(views=SCALE_VIEWS, hw=256, max_keypoints=1024,
+                        window=8, loop=False, retrieval_k=0, workdir=wd)
+    r["render_s"] = render_s
+    launches = dict(match_mod.LAUNCHES)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "SCALE200.json")
+    ref = None
+    if os.path.exists(path):
+        with open(path) as fh:
+            ref = json.load(fh)
+    log(json.dumps({"scale": {**r, "launches": launches,
+                              "phase_s": time.time() - t0,
+                              "reference": ref}}))
+    want = -(-r["pairs"] // PAIR_BLOCK)
+    check(launches["l2_top2_block_f32"] == want,
+          f"(k) K1 f32 launched {launches['l2_top2_block_f32']} times, "
+          f"want {want}")
+    check(r["gates"]["posed_ok"],
+          f"(k) {r['num_cameras']} of {r['views']} views posed (< 95%)")
+    check(r["gates"]["ate_ok"],
+          f"(k) ATE {r['ate']:.4f} = {100 * r['ate_fraction_of_extent']:.3f}"
+          f"% of the extent (> 0.5%)")
+    return launches["l2_top2_block_f32"], os.path.join(wd, "matches")
+
+
+def phase_scale_kernel(matches):
+    """(k) K1 f32 at the scale path's shape (the first 64 window pairs of
+    the 200 views, 1024 keypoints padded to 1024), against its plain
+    version, timed beside its bound and ``torch.bmm``."""
+    from regard3d_tpu_torch.ingest import synth
+    from regard3d_tpu_torch.pipeline import compute_matches as cm
+    from regard3d_tpu_torch.pipeline import features as fm
+    from regard3d_tpu_torch.kernels import match as match_mod
+    kps, descs = fm.load_all_padded(matches, SCALE_VIEWS, pad_to=256,
+                                    padded_dim=cm.MATCH_DIM, device="cuda")
+    desc, mask = descs.data, descs.mask
+    parr = torch.as_tensor(np.asarray(
+        synth.window_pairs(SCALE_VIEWS, 8)[:PAIR_BLOCK], np.int32))
+    pl = parr.long().cuda()
+    B, N, D = desc.shape
+    ga, gb = desc[pl[:, 0]], desc[pl[:, 1]]
+    return kernel_row(
+        "l2_top2_block_f32",
+        run=lambda: match_mod.l2_top2_block(desc, mask, parr),
+        plain=lambda: match_mod.l2_top2_block_plain(desc, mask, parr),
+        lib=lambda: torch.bmm(ga, gb.transpose(1, 2)),
+        P=PAIR_BLOCK, M=N, N=N, D=D,
+        in_bytes=(len(torch.unique(pl)) * (N * D * 4 + N)
+                  + PAIR_BLOCK * 8),
+        out_words=3, bf16=False, replaces=K1,
+        compare=lambda n, g, w: _compare(n, g, w, 1e-5, 1e-5), tag="(k)")
 
 
 def dense_geometry(scene, Cs_true, xyz, nrm, verts=None):
-    """The dense cloud and the mesh vertices in the truth frame (the Sim3
-    that ``umeyama`` fits from the estimated camera centres to the true
-    ones) against the fountain's quads: the share of points within
-    GATE_CLOUD_TOL of the extent of a quad, the median |cos| between each
-    point's normal and its nearest quad's, the share of mesh vertices
-    within GATE_SURFACE_TOL."""
-    from regard3d_tpu_torch.core import metrics
-    pm = scene.poses.mask.numpy()
-    sim = metrics.umeyama(scene.poses.C.numpy()[pm], Cs_true[pm])
-    ext = scene_extent()
-    X = sim.apply(xyz)
-    N = np.asarray(nrm, np.float64) @ sim.R.T
-    N /= np.maximum(np.linalg.norm(N, axis=1, keepdims=True), 1e-12)
-    d = quad_distances(X)
-    qn = np.cross(FOUNTAIN_QUADS[:, 1], FOUNTAIN_QUADS[:, 2])
-    qn /= np.linalg.norm(qn, axis=1, keepdims=True)
-    cos = np.abs(np.sum(N * qn[d.argmin(1)], 1))
-    geo = {"extent": ext, "sim3_scale": sim.scale,
-            "cloud_near_frac": float((d.min(1) <= GATE_CLOUD_TOL * ext)
-                                     .mean()),
-            "cloud_dist_median": float(np.median(d.min(1))),
-            "cloud_dist_p90": float(np.percentile(d.min(1), 90)),
-            "normal_cos_median": float(np.median(cos))}
-    if verts is not None:
-        dv = quad_distances(sim.apply(verts)).min(1)
-        geo["surface_near_frac"] = float((dv <= GATE_SURFACE_TOL * ext)
-                                         .mean())
-        geo["surface_dist_median"] = float(np.median(dv))
-    return geo
+    """The cloud and the mesh in the truth frame against the fountain's
+    quads, at the gates' tolerances (``tools/dense_normals``)."""
+    from regard3d_tpu_torch.tools import dense_normals
+    return dense_normals.dense_geometry(scene, Cs_true, xyz, nrm, verts,
+                                        GATE_CLOUD_TOL, GATE_SURFACE_TOL)
 
 
 def run_dense(scene, images, out, device="cuda"):
     """The dense slice's main path as the CLI chains it (densify ->
     dense.ply -> reconstruct on the cloud read back -> surface.ply ->
     k-NN vertex colors -> texture atlas -> OBJ + MTL + PNG). Returns the
-    products and each step's host seconds and peak device memory."""
+    products, each step's host seconds and peak device memory, and the
+    grid statistics of the cloud handed to ``reconstruct``."""
     from regard3d_tpu_torch.export import model_ops, ply
     from regard3d_tpu_torch.mvs import driver
     from regard3d_tpu_torch.surface import poisson, texture
+    from regard3d_tpu_torch.tools.dense_normals import DENSE_KW
     os.makedirs(out, exist_ok=True)
     cuda = torch.device(device).type == "cuda"
     steps = {}
@@ -888,8 +1051,9 @@ def run_dense(scene, images, out, device="cuda"):
     ply.write_ply(dense, ply.PlyData(xyz=xyz, rgb=(rgb * 255).astype(
         np.uint8), normals=nrm))
     cloud = ply.read_ply(dense)
+    grid = {}
     verts, faces = step("surface", lambda: poisson.reconstruct(
-        cloud.xyz, cloud.normals, device=device, **SURFACE_KW))
+        cloud.xyz, cloud.normals, device=device, stats=grid, **SURFACE_KW))
     surface = os.path.join(out, "surface.ply")
     ply.write_ply(surface, ply.PlyData(xyz=verts, faces=faces))
     colored = step("colorize", lambda: model_ops.colorize_mesh_from_cloud(
@@ -900,7 +1064,8 @@ def run_dense(scene, images, out, device="cuda"):
     step("write_obj", lambda: texture.write_textured_obj(
         os.path.join(out, "textured"), tex))
     return dict(xyz=xyz, nrm=nrm, dmaps=dmaps, verts=verts, faces=faces,
-                colored=colored, tex=tex, cloud=cloud, steps=steps)
+                colored=colored, tex=tex, cloud=cloud, steps=steps,
+                poisson=grid)
 
 
 def check_dense_artifacts(out, res):
@@ -936,6 +1101,7 @@ def phase_dense(ds, scene_npz, workdir):
     two reconstructs of one cloud to the same bits)."""
     from torch.profiler import ProfilerActivity, profile
     from regard3d_tpu_torch.core.sfm_data import load_npz
+    from regard3d_tpu_torch.tools import dense_normals
 
     scene = load_npz(scene_npz)
     out = os.path.join(workdir, "dense")
@@ -961,13 +1127,14 @@ def phase_dense(ds, scene_npz, workdir):
             f"{[k for k, _ in r['top_kernels']]}")
     phase_s = time.time() - t0
     log(json.dumps({"dense": {
-        "config": {"densify": DENSE_KW, "surface": SURFACE_KW,
+        "config": {"densify": dense_normals.DENSE_KW, "surface": SURFACE_KW,
                    "colorize_k": 3, "views": N_CAMS, "hw": HW},
         "points": n, "vertices": len(res["verts"]), "faces": nf,
         "depth_maps": len(res["dmaps"]),
         "atlas_px": res["tex"].atlas.shape[0],
         "labelled_faces": float((res["tex"].labels >= 0).mean()),
-        "geometry": geo, "elapsed_profiled_s": elapsed, "phase_s": phase_s,
+        "geometry": geo, "poisson": res["poisson"],
+        "elapsed_profiled_s": elapsed, "phase_s": phase_s,
         "steps": res["steps"], "spans": rows}}))
     check(len(res["dmaps"]) == N_CAMS, f"{len(res['dmaps'])} depth maps")
     check(n >= GATE_MIN_POINTS, f"{n} dense points < {GATE_MIN_POINTS}")
@@ -1133,25 +1300,28 @@ def phase_cli(ds, workdir, device="cuda", match_args=()):
     prof_dir = os.path.join(base, "prof")
     m_stats = json.loads(cli("matches", proj, "--profile", prof_dir,
                              *match_args))
-    pairs = json.loads(cli("pairs", proj, "--json"))
+    # a step that only reads the project (pairs, export, preview) runs
+    # beside the step that writes it next (saves replace project.json
+    # whole); the writing steps run one at a time
+    s1, pairs = clis(("sfm", proj), ("pairs", proj, "--json"))
+    s1, pairs = json.loads(s1), json.loads(pairs)
     best = f"{pairs[0]['i']},{pairs[0]['j']}"
-    s1 = json.loads(cli("sfm", proj))
-    s2 = json.loads(cli("sfm", proj, "--engine", "incremental",
-                        "--initial-pair", best, "--use-gps", "--id", "1"))
     exports = os.path.join(base, "exports")
-    # the exports read the project and write apart: all nine at once
-    clis(*(("export", proj, "--id", "2", "--format", fmt, "--out",
-            os.path.join(exports, fmt)) for fmt in CLI_FORMATS))
-    d_stats = json.loads(cli("densify", proj, "--id", "2", "--method",
-                             "tpu"))
+    s2 = json.loads(clis(
+        ("sfm", proj, "--engine", "incremental", "--initial-pair", best,
+         "--use-gps", "--id", "1"),
+        *(("export", proj, "--id", "2", "--format", fmt, "--out",
+           os.path.join(exports, fmt)) for fmt in CLI_FORMATS))[0])
+    previews = os.path.join(base, "previews")
+    d_stats = json.loads(clis(
+        ("densify", proj, "--id", "2", "--method", "tpu"),
+        ("preview", proj, "--view", "0", "--out", previews),
+        ("preview", proj, "--pair", best, "--out", previews))[0])
     v_stats = json.loads(cli("surface", proj, "--method", "tpu", "--depth",
                              "8", "--colorize", "vertices"))
     t_stats = json.loads(cli("surface", proj, "--id", "4", "--method", "tpu",
                              "--depth", "8", "--colorize", "textures"))
-    previews = os.path.join(base, "previews")
-    info = clis(("preview", proj, "--view", "0", "--out", previews),
-                ("preview", proj, "--pair", best, "--out", previews),
-                ("info", proj))[2]
+    info = cli("info", proj)
 
     # the project: every step finished, one line of `info` each
     with open(os.path.join(proj, "project.json")) as fh:
@@ -1215,6 +1385,12 @@ def phase_cli(ds, workdir, device="cuda", match_args=()):
     check(np.array_equal(tsurf.xyz, surf.xyz)
           and np.array_equal(tsurf.faces, surf.faces),
           "two reconstructs of the same cloud gave other meshes")
+    # the grid the CLI's reconstruct laid over its cloud (the faces before
+    # the trim are (i)'s alone: they would take another marching here)
+    from regard3d_tpu_torch.surface import poisson
+    grid = dict(poisson.grid_stats(cloud.xyz, SURFACE_KW["depth"]),
+                faces=len(surf.faces))
+    log(f"(j) the cloud handed to reconstruct: {grid}")
     prefix = t_stats["surface"][:-len(".obj")]
     with open(prefix + ".obj") as fh:
         kinds = collections.Counter(line.split(" ", 1)[0] for line in fh)
@@ -1256,26 +1432,67 @@ def phase_cli(ds, workdir, device="cuda", match_args=()):
         "sfm_gps": {"cameras": s2["num_cameras"], "init_pair": best,
                     "centre_rms_no_alignment": gps_rms},
         "dense": {"points": len(cloud.xyz), "vertices": len(surf.xyz),
-                  "faces": len(surf.faces), "geometry": geo},
+                  "faces": len(surf.faces), "geometry": geo,
+                  "poisson": grid},
         "phase_s": time.time() - t_phase}}))
     return k1
 
 
 def phase_accuracy():
-    """(h) the radial-K3 twin at the reference's accuracy settings, held to
-    the reference's gates and printed beside ACCURACY.json's row."""
+    """(h) the radial-K3 twin at the reference's accuracy settings but 512
+    RANSAC iterations (2048 there; (j) gates radial-K3 through the command
+    line at full depth), held to the reference's gates and printed beside
+    ACCURACY.json's row."""
     from regard3d_tpu_torch.tools import accuracy
-    row = accuracy.run_dataset("fountain_rk3")
-    ref = None
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "ACCURACY.json")
-    if os.path.exists(path):
-        with open(path) as fh:
-            ref = {r["dataset"]: r for r in json.load(fh)["results"]}.get(
-                "fountain_rk3")
+    row = accuracy.run_dataset("fountain_rk3", ransac_iters=ACCURACY_ITERS)
+    ref = accuracy.reference_rows("incremental2").get("fountain_rk3")
     log(json.dumps({"accuracy": {"port": row, "reference": ref}}))
     bad = accuracy.gate_failures(row)
     check(not bad, "; ".join(bad))
+
+
+def run_phases(ds, work, render, scale_wd, stamp):
+    """Phases (j) to (k) in order, in the work directory; returns the rows
+    of the ``kernels`` line with their launch counts."""
+    from regard3d_tpu_torch.pipeline import compute_matches as cm
+    from regard3d_tpu_torch.pipeline import features as fm
+    # first: the CLI's processes take the card before this one does
+    k1_cli = phase_cli(ds, work)
+    stamp("(j)")
+    out, launches = phase_stage(ds, work)
+    kps, descs = fm.load_all_padded(out, N_CAMS, pad_to=256,
+                                    padded_dim=cm.MATCH_DIM, device="cuda")
+    paths = {"stage": launches, "flann": phase_flann(out, kps, descs)}
+    stamp("(b)")
+    pairs = cm.exhaustive_pairs(N_CAMS)
+    pairs = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
+    parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
+    rows = phase_kernels(descs.data, descs.mask, parr)
+    phase_ties(descs.data)
+    phase_wide(descs.data, descs.mask, parr)
+    stamp("(c)")
+    phase_profile(ds, work)
+    stamp("(e)")
+    paths["profile"] = phase_matcher_profile(descs.data, descs.mask, parr)
+    stamp("(f)")
+    phase_sfm(ds, out, work)
+    stamp("(g)")
+    phase_engines(ds, out, work)
+    stamp("(l)")
+    phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
+    stamp("(i)")
+    k1_scale, scale_matches = phase_scale(render, scale_wd)
+    scale_row = phase_scale_kernel(scale_matches)
+    stamp("(k)")
+    for row in rows:
+        row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]
+    k1_f32 = next(r for r in rows if r["name"] == "l2_top2_block_f32")
+    k1_f32["launches_cli"] = k1_cli       # (j)'s matches
+    k1_f32["launches_scale"] = k1_scale   # (k)'s matches
+    k1_f32["scale"] = {k: scale_row[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms", "shape", "tflops")}
+    return rows
 
 
 def main():
@@ -1285,6 +1502,7 @@ def main():
     import regard3d_tpu_torch  # noqa: F401  (fails outside the repository)
 
     t0 = time.time()
+    stamp = lambda tag: log(f"[{time.time() - t0:.1f} s] {tag} done")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
     phase_build()
@@ -1293,33 +1511,17 @@ def main():
     ds = synth.make_dataset("fountain", n_cams=N_CAMS, hw=HW, seed=0)
     log(f"(b) rendered {N_CAMS} views at {HW}x{HW} in "
         f"{time.time() - t1:.1f} s")
-    from regard3d_tpu_torch.pipeline import compute_matches as cm
-    from regard3d_tpu_torch.pipeline import features as fm
     with tempfile.TemporaryDirectory(dir=os.path.dirname(
             os.path.abspath(__file__))) as work:
-        # first: the CLI's processes take the card before this one does
-        k1_cli = phase_cli(ds, work)
-        out, launches = phase_stage(ds, work)
-        kps, descs = fm.load_all_padded(out, N_CAMS, pad_to=256,
-                                        padded_dim=cm.MATCH_DIM,
-                                        device="cuda")
-        paths = {"stage": launches, "flann": phase_flann(out, kps, descs)}
-        pairs = cm.exhaustive_pairs(N_CAMS)
-        pairs = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
-        parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
-        rows = phase_kernels(descs.data, descs.mask, parr)
-        phase_ties(descs.data)
-        phase_wide(descs.data, descs.mask, parr)
-        phase_profile(ds, work)
-        paths["profile"] = phase_matcher_profile(descs.data, descs.mask,
-                                                 parr)
-        phase_sfm(ds, out, work)
-        phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
+        render, scale_wd = start_render(work)
+        try:
+            rows = run_phases(ds, work, render, scale_wd, stamp)
+        finally:
+            if render.poll() is None:
+                render.kill()
+                render.wait()
     phase_accuracy()
-    for row in rows:
-        row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]
-    k1_f32 = next(r for r in rows if r["name"] == "l2_top2_block_f32")
-    k1_f32["launches_cli"] = k1_cli       # (j)'s matches
+    stamp("(h)")
     log(f"total {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card)

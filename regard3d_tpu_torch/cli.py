@@ -10,9 +10,8 @@ surface) raise with no card unless ``--device cpu`` is given, and
 kernels, copies and launch calls, as a JAX trace holds the device's work
 and the runtime's dispatch (on the CPU, the operators). Not ported yet, each
 raising ``NotImplementedError`` naming its ROADMAP §1 item: ``launch`` and
-multi-process runs (11), ``--engine global`` (10), ``--initializer
-stellar`` (6), ``--f64`` (9), ``--dist-ba`` (11), detectors other than
-akaze / fast-akaze (12).
+multi-process runs (11), ``--f64`` (9), ``--dist-ba`` (11), detectors other
+than akaze / fast-akaze (12).
 
 Maps the reference's GUI workflow (``Regard3DMainFrame`` orchestration
 methods: addComputeMatches / triangulate / createDensePointcloud /

@@ -18,8 +18,13 @@ statistics that make AKAZE/LIOP work on masonry. Rendering is exact
 ray/plane intersection with bilinear texture lookup and nearest-hit
 compositing, so ground truth is exact to float64.
 
-Numpy copy of ``regard3d_tpu/ingest/synth.py`` without ``make_city`` (the
-port imports nothing from the reference package).
+* ``city``     — the scale axis (a Rome16K stand-in): a street of facade
+  rows with ``n_cams`` views, as an open corridor or a closed loop, plus
+  ``window_pairs``, the sequential pair list of an ordered capture.
+
+Numpy copy of ``regard3d_tpu/ingest/synth.py`` (the port imports nothing
+from the reference package): the same ``default_rng`` draws in the same
+order, so the arrays are identical for the same seed.
 """
 
 from __future__ import annotations
@@ -186,3 +191,129 @@ def make_dataset(name: str = "castle", n_cams: int = 11, hw: int = 320,
     return dict(images=images, Rs=np.stack(Rs).astype(np.float64),
                 Cs=Cs.astype(np.float64), f=float(f), hw=hw, name=name,
                 disto=tuple(disto) if disto is not None else None)
+
+
+def make_city(n_cams: int = 1000, hw: int = 256, f: Optional[float] = None,
+              seed: int = 0, facade_spacing: float = 5.0,
+              street_half_width: float = 4.0,
+              cull_dist: float = 30.0, loop: bool = False) -> Dict:
+    """Large sequential dataset: a camera drives down a textured street
+    (facade rows on both sides + ground), ~`n_cams` views with exact GT.
+
+    The scale axis of BASELINE.md (Rome16K stand-in, network-free): view
+    count grows with path length, scene size grows linearly, and only
+    facades within ``cull_dist`` of the camera are ray-cast per view so
+    render cost stays O(1) per image.
+
+    ``loop=True`` drives a CLOSED circular block instead of an open
+    corridor, with the last ~35 views re-traversing the start — a
+    loop-closure capture (the 1DSfM photo-collection regime is heavily
+    looped; an open corridor is pure odometry whose scale drift no amount
+    of BA can observe).  Closing the loop requires pairing temporally
+    distant views — ``retrieval_pairs`` in the matching stage."""
+    rng = np.random.default_rng(seed)
+    f = f or 1.3 * hw
+    step = 0.22                           # camera advance per view
+
+    if loop:
+        # circular street: perimeter ~8% under the path length so the tail
+        # re-traverses the head (loop-closure overlap); tiny captures lap
+        # the block more than once (an orbit capture), which closes too
+        perimeter = max(n_cams * step * 0.92,
+                        2.0 * np.pi * (street_half_width + 2.0))
+        radius = perimeter / (2.0 * np.pi)
+        ctr = np.array([radius, 0.0, 0.0])
+
+        def path(s):
+            a = s / radius
+            return ctr + radius * np.array([-np.cos(a), 0.0, np.sin(a)])
+
+        def tangent(s):
+            a = s / radius
+            return np.array([np.sin(a), 0.0, np.cos(a)])
+
+        def lateral(s):                  # outward normal
+            a = s / radius
+            return np.array([-np.cos(a), 0.0, np.sin(a)])
+
+        quads = []
+        n_fac = int(perimeter / facade_spacing) + 1
+        for k in range(n_fac):
+            s0 = k * facade_spacing
+            for side in (-1.0, 1.0):
+                tex = _smooth_texture(rng, 96)
+                depth_jit = rng.uniform(-0.6, 0.6)
+                base = (path(s0)
+                        + side * (street_half_width + depth_jit)
+                        * lateral(s0) + np.array([0.0, -3.0, 0.0]))
+                quads.append(Quad(base,
+                                  facade_spacing * 0.92 * tangent(s0),
+                                  [0, 6.0, 0], tex))
+        ground = _smooth_texture(rng, 256)
+        ext = radius + street_half_width + 2.0
+        quads.append(Quad([ctr[0] - ext, 3.0, ctr[2] - ext],
+                          [2 * ext, 0, 0], [0, 0, 2 * ext], ground))
+    else:
+        length = n_cams * step + 30.0
+        n_fac = int(length / facade_spacing) + 2
+
+        quads = []
+        for k in range(n_fac):
+            x0 = k * facade_spacing - 10.0
+            for side in (-1.0, 1.0):
+                tex = _smooth_texture(rng, 96)
+                depth_jit = rng.uniform(-0.6, 0.6)
+                y_wall = side * (street_half_width + depth_jit)
+                # facade quad: spans [x0, x0+spacing] along x, height 6 in
+                # y; world frame: street along +x, facades vertical in y,
+                # at lateral offset z (castle convention)
+                quads.append(Quad([x0, -3.0, y_wall],
+                                  [facade_spacing * 0.92, 0, 0],
+                                  [0, 6.0, 0], tex))
+        ground = _smooth_texture(rng, 256)
+        quads.append(Quad([-10.0, 3.0, -street_half_width - 1],
+                          [length + 20.0, 0, 0],
+                          [0, 0, 2 * street_half_width + 2], ground))
+    centers = np.asarray([np.asarray(q.o) + 0.5 * (np.asarray(q.u)
+                                                   + np.asarray(q.v))
+                          for q in quads])
+
+    Rs, Cs, images = [], [], []
+    for i in range(n_cams):
+        # lateral weave with a short period: pure forward motion gives
+        # window pairs sub-degree parallax (nothing triangulates); a real
+        # capture platform always weaves, and the ~18-view period makes
+        # neighbours (and i,i+6 pairs) carry 0.5-2.5 units of lateral
+        # baseline against 4-10 units of depth
+        dy = -0.4 + 0.15 * np.sin(i * 0.23)
+        weave = 1.3 * np.sin(i * 0.35)
+        sweep = 2.2 * np.sin(i * 0.1)
+        if loop:
+            s = i * step
+            C = path(s) + weave * lateral(s) + np.array([0.0, dy, 0.0])
+            target = (path(s + 6.0) + sweep * lateral(s)
+                      + np.array([0.0, 0.2, 0.0]))
+        else:
+            x = 5.0 + i * step
+            C = np.array([x, dy, weave])
+            # look ahead with alternating lateral sweep so facades on both
+            # sides get seen from many angles
+            target = np.array([x + 6.0, 0.2, sweep])
+        R = _look_at(C, target)
+        near = [q for q, c in zip(quads, centers)
+                if np.hypot(c[0] - C[0], c[2] - C[2]) < cull_dist
+                or q is quads[-1]]
+        Rs.append(R)
+        Cs.append(C)
+        images.append(render_view(near, R, C, f, hw))
+    return dict(images=images, Rs=np.stack(Rs).astype(np.float64),
+                Cs=np.stack(Cs).astype(np.float64), f=float(f), hw=hw,
+                name="city", disto=None)
+
+
+def window_pairs(n: int, window: int = 8):
+    """Sequential pair pruning for ordered captures: each view pairs with
+    its next ``window`` successors (the large-N alternative to exhaustive
+    O(N^2) pairing)."""
+    return [(i, j) for i in range(n)
+            for j in range(i + 1, min(i + 1 + window, n))]

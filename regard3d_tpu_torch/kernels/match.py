@@ -359,6 +359,26 @@ def mutual_filter(idx_ab, ok_ab, idx_ba, ok_ba):
     return ok_ab & ok_b & (back == rows)
 
 
+def match_pairs_batched(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
+                        use_kernel: bool = True):
+    """``match_pair`` over a batch of pairs: row p of desc_a (P, M, D)
+    against row p of desc_b (P, N, D), masks (P, M) and (P, N). On CUDA
+    tensors one launch of the block kernel (K1) over the pair table
+    (p, p); CPU tensors and ``use_kernel=False`` take the plain top-2.
+    Returns (idx, d1, ok), each (P, M)."""
+    if use_kernel and desc_a.is_cuda:
+        P = desc_a.shape[0]
+        a, b = desc_a.contiguous(), desc_b.contiguous()
+        pairs = torch.arange(P, dtype=torch.int32)[:, None].expand(P, 2)
+        d1, i1, d2 = _launch(a, b, _bnorm(b, mask_b), pairs)
+        LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[a.dtype]}"] += 1
+    else:
+        d1, i1, d2 = _top2_plain(desc_a, desc_b, _bnorm(desc_b, mask_b),
+                                 False)
+    ok = mask_a & (d1 < (ratio * ratio) * d2) & (d1 < 1e30)
+    return i1, d1, ok
+
+
 def match_pair_block(desc, mask, pairs, ratio: float = 0.8,
                      use_kernel: bool = True, bf16: bool = False):
     """Match a block of image pairs in one dispatch. desc: (B, N, D) padded

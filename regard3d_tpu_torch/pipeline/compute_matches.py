@@ -314,7 +314,7 @@ def geometric_filter(kps, putative: Dict[Tuple[int, int], np.ndarray],
         buckets.setdefault(cap, []).append((pr, m))
 
     max_err_f = np.float32(cfg.max_err_px ** 2)
-    n_done, n_total = 0, len(items)
+    n_done, n_total, n_blocks = 0, len(items), 0
     t = lambda a: torch.as_tensor(a, device=dev)
     for cap, blist in sorted(buckets.items()):
         chunked_iters = min(cfg.ransac_iters, 128)
@@ -392,6 +392,7 @@ def geometric_filter(kps, putative: Dict[Tuple[int, int], np.ndarray],
                 if h_valid is not None and h_valid[bi]:
                     out_h[(i, j)] = m[h_inl[bi][:n]]
             n_done += len(group)
+            n_blocks += 1
             if progress:
                 progress(n_done, n_total)
 
@@ -404,6 +405,7 @@ def geometric_filter(kps, putative: Dict[Tuple[int, int], np.ndarray],
         "matches_f": int(sum(len(m) for m in out_f.values())),
         "matches_e": int(sum(len(m) for m in out_e.values())),
         "matches_h": int(sum(len(m) for m in out_h.values())),
+        "filter_blocks": n_blocks,
     }
     return FilterResult(out_f, out_e, out_h, stats)
 

@@ -1,16 +1,17 @@
 """Triangulation (SfM) stage driver.
 
 Counterpart of ``regard3d_tpu/pipeline/triangulation_step.py``: features +
-filtered matches -> tracks -> the incremental engine (incremental2 with
-MaxPair, or v1 from the user's initial pair; optional GPS center priors)
--> artifacts: ``scene.npz`` (the ``sfm_data.bin`` role),
-``sfm_data.json``, ``cloud_and_poses.ply``, ``FinalColorized.ply``,
-``Reconstruction_Report.html``, with the reference's residual statistics.
+filtered matches -> tracks -> an engine of the menu (incremental2 with
+the MaxPair or the stellar initializer, v1 from the user's initial pair,
+optional GPS center priors; or the global engine on the E-filtered
+matches, with its averaging menus) -> artifacts: ``scene.npz`` (the
+``sfm_data.bin`` role), ``sfm_data.json``, ``cloud_and_poses.ply``,
+``FinalColorized.ply``, ``Reconstruction_Report.html``, with the
+reference's residual statistics.
 
 Runs on ``device`` (default cuda; raises with no card unless the CPU is
 asked for). Waiting for later slices, each raising ``NotImplementedError``
-naming its ROADMAP §1 item: the stellar initializer, float64 engines, the
-global engine and the sharded BA polish.
+naming its ROADMAP §1 item: float64 engines and the sharded BA polish.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from regard3d_tpu_torch.pipeline import compute_matches as cm
 from regard3d_tpu_torch.pipeline import features as feat_mod
 from regard3d_tpu_torch.pipeline.report import (scene_snapshots_svg,
                                                 write_html_report)
-from regard3d_tpu_torch.sfm import incremental, tracks as tracks_mod
+from regard3d_tpu_torch.sfm import global_sfm, incremental
+from regard3d_tpu_torch.sfm import tracks as tracks_mod
 from regard3d_tpu_torch.sfm.triangulate import reprojection_residuals_px
 
 
@@ -157,14 +159,6 @@ def colorize_tracks(inputs, result, images: Sequence[np.ndarray]
 
 def check_params(params: TriangulationParams):
     """Raise ``NotImplementedError`` for the options not ported yet."""
-    if params.engine == "global":
-        raise NotImplementedError(
-            "engine='global' waits for a later slice (ROADMAP §1 item 10)")
-    user_pair = params.engine == "incremental" and params.initial_pair
-    if params.initializer != "maxpair" and not user_pair:
-        raise NotImplementedError(
-            f"initializer {params.initializer!r}: the stellar initializer "
-            "waits for a later slice (ROADMAP §1 item 6)")
     if params.dist_ba:
         raise NotImplementedError(
             "dist_ba=True (sharded BA) waits for a later slice (ROADMAP §1 "
@@ -188,27 +182,36 @@ def run_triangulation(matches_dir: str, out_dir: str,
     """Full triangulation step; writes the artifacts; returns stats.
     ``engine="incremental"`` starts from ``params.initial_pair`` (None:
     MaxPair, as the reference); ``center_priors`` (V, 3) anchor the result
-    when ``params.use_gps``. ``sample_provider``: the engine's draws
-    (``sfm/incremental.py``)."""
+    when ``params.use_gps``. ``engine="global"`` reads ``matches.e.txt``.
+    ``sample_provider``: the engine's draws (``sfm/incremental.py``)."""
     check_params(params)
     dev = runtime.resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
     image_sizes = np.asarray([[im.shape[1], im.shape[0]] for im in images])
 
+    kind = "e" if params.engine == "global" else params.matches_kind
     inputs, table = build_sfm_inputs(matches_dir, len(images), intr_id, intr,
-                                     models, image_sizes, params.matches_kind,
-                                     device=dev)
-    init = params.initial_pair if params.engine == "incremental" else None
-    result = incremental.run_incremental(
-        inputs, initial_pair=init, cfg=incremental.IncrementalConfig(
-            refine_intrinsics=params.refine_intrinsics,
-            initializer=params.initializer,
-            ba_every=params.ba_every,
-            ba_iterations=params.ba_iterations,
-            final_ba_iterations=params.final_ba_iterations),
-        seed=seed, device=dev, sample_provider=sample_provider,
-        center_priors=(center_priors if params.use_gps else None))
+                                     models, image_sizes, kind, device=dev)
+    if params.engine == "global":
+        result = global_sfm.run_global(
+            inputs, global_sfm.GlobalConfig(
+                rotation_loss=params.rotation_averaging,
+                translation_loss=params.translation_averaging,
+                refine_intrinsics=params.refine_intrinsics,
+                min_pair_inliers=params.min_pair_matches),
+            seed=seed, device=dev, sample_provider=sample_provider)
+    else:
+        init = params.initial_pair if params.engine == "incremental" else None
+        result = incremental.run_incremental(
+            inputs, initial_pair=init, cfg=incremental.IncrementalConfig(
+                refine_intrinsics=params.refine_intrinsics,
+                initializer=params.initializer,
+                ba_every=params.ba_every,
+                ba_iterations=params.ba_iterations,
+                final_ba_iterations=params.final_ba_iterations),
+            seed=seed, device=dev, sample_provider=sample_provider,
+            center_priors=(center_priors if params.use_gps else None))
 
     colors = colorize_tracks(inputs, result, images)
     scene = result_to_scene(result, inputs, image_sizes, colors)

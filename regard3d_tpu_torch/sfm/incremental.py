@@ -1,12 +1,14 @@
-"""Incremental SfM engine (incremental2 with the MaxPair initializer, and
-v1 with a user-chosen initial pair).
+"""Incremental SfM engine (incremental2 with the MaxPair or the stellar
+initializer, and v1 with a user-chosen initial pair).
 
 Counterpart of ``regard3d_tpu/sfm/incremental.py`` (OpenMVG's
 ``SequentialSfMReconstructionEngine2`` as the reference drives it):
 
   initial pair (batched E/H AC-RANSAC over the most covisible pairs,
   cheirality vote, parallax gate, scored scan; or the user's pair with a
-  serial robust pose) -> triangulate
+  serial robust pose), or a stellar pod (a hub view and up to six
+  neighbours, each hub edge a robust relative pose, the edges' baselines
+  reconciled by a log least squares over shared-track depths) -> triangulate
   -> { resect the group of best-covered views (batched P3P AC-RANSAC)
        -> retriangulate -> bundle adjust every ``ba_every`` views
        -> reject outlier observations } until no view is left
@@ -26,14 +28,17 @@ from a ``jax.random`` key chain. Here every batched AC-RANSAC call asks a
 ``sample_provider(kind, mask, iters, s) -> (B, iters, s)`` for its sample
 indices, with ``kind`` one of ``"init_e"``, ``"init_h"`` (MaxPair),
 ``"init_pair"``, ``"init_pair_retry"`` (the user's pair: four attempts,
-then one last attempt that takes any decomposition), ``"resection"``, and
-``mask`` the (B, N) numpy mask of the call's rows, in the reference's call
-order. The default provider draws from one CPU ``torch.Generator`` per
-call, seeded from (seed, call index); parity tests replay the reference's
-key chain instead.
-
-Waiting for a later slice (raises ``NotImplementedError``): the stellar
-initializer (ROADMAP §1 item 6).
+then one last attempt that takes any decomposition), ``"stellar_h"``,
+``"stellar_e"`` (the stellar pod's hub edges: planarity tests and
+relative-pose attempts), ``"resection"``, and ``mask`` the (B, N) numpy
+mask of the call's rows, in the reference's call order. Calls whose rows
+the reference draws one key per row for add ``ids``, one tuple per row:
+(b,) and (b, attempt) for hub edge b of the stellar pod, (i, j, attempt)
+for a pair of the global engine (``sfm/global_sfm.py``), so the draws do
+not depend on how rows are grouped. The default provider draws from one
+CPU ``torch.Generator`` per call, seeded from (seed, call index), or per
+row from (seed, *ids); parity tests replay the reference's key chain
+instead.
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ from regard3d_tpu_torch.sfm.triangulate import (reprojection_residuals_px,
                                                 track_table,
                                                 triangulate_tracks)
 
-SampleProvider = Callable[[str, np.ndarray, int, int], np.ndarray]
+# (kind, mask, iters, s[, ids]) -> (B, iters, s) sample indices
+SampleProvider = Callable[..., np.ndarray]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,8 +79,7 @@ class IncrementalConfig:
     refine_intrinsics: bool = True     # ADJUST_ALL parity default
     huber_delta_px: float = 2.0
     min_initial_inliers: int = 50
-    initializer: str = "maxpair"       # "maxpair" | "stellar" (stellar
-                                       # waits for a later slice)
+    initializer: str = "maxpair"       # "maxpair" | "stellar"
     resection_group: int = 16          # max views resected per round
     resection_group_frac: float = 0.5  # group admits views with >= frac of
                                        # the best candidate's visible count
@@ -122,17 +127,25 @@ def _pair_obs(vid: np.ndarray, tid: np.ndarray, i: int, j: int):
     return rows_i[ii], rows_j[jj]
 
 
+def _generator(*entropy) -> torch.Generator:
+    g = torch.Generator()
+    ss = np.random.SeedSequence(list(entropy))
+    g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> 1))
+    return g
+
+
 def default_provider(seed: int) -> SampleProvider:
-    """Draws from one CPU generator per call, seeded from (seed, call)."""
+    """Draws from one CPU generator per call, seeded from (seed, call), or
+    with ``ids`` from one generator per row, seeded from (seed, *row)."""
     calls = [0]
 
-    def provider(kind, mask, iters, s):
-        ss = np.random.SeedSequence([seed, calls[0]])
-        calls[0] += 1
-        g = torch.Generator()
-        g.manual_seed(int(ss.generate_state(1, np.uint64)[0] >> 1))
-        return ransac._draw_samples_batch([g] * mask.shape[0],
-                                          torch.as_tensor(mask), iters,
+    def provider(kind, mask, iters, s, ids=None):
+        if ids is None:
+            gens = [_generator(seed, calls[0])] * mask.shape[0]
+            calls[0] += 1
+        else:
+            gens = [_generator(seed, *map(int, row)) for row in ids]
+        return ransac._draw_samples_batch(gens, torch.as_tensor(mask), iters,
                                           s).numpy()
     return provider
 
@@ -349,6 +362,249 @@ def _relative_pose(inputs: SfMInputs, xn: np.ndarray, i: int, j: int,
     return best[1:]
 
 
+def _hub_edges(inputs: SfMInputs, xn: np.ndarray, hub: int, branches,
+               draws: SampleProvider, cfg: IncrementalConfig, host: Dict,
+               attempts: int = 4, min_valid_frac: float = 0.7,
+               h_ratio_threshold: float = 0.92):
+    """The stellar pod's hub edges, batched over the branches: for edge b
+    = (hub, branches[b]), the planarity test (a robust homography that
+    explains >= 92% of the pair's correspondences: planar scene or pure
+    rotation, a degenerate E) and the robust relative pose (AC-RANSAC E +
+    decomposition with the cheirality gate, up to ``attempts`` draws, the
+    first with >= ``min_valid_frac`` consistent inliers wins, else the
+    best). The reference takes the edges one at a time with one key per
+    edge; here each batched call's rows carry ``ids`` (b,) for the
+    planarity test and (b, attempt) for the poses, and rows are grouped by
+    the reference's per-pair padding. Returns {b: (Rrel, trel, oi, oj,
+    inl)} for the edges with a pose (j = max(hub, v) in i = min's frame);
+    planar edges have none."""
+    vid, tid, intr_np, iid = (host["vid"], host["tid"], host["intr"],
+                              host["iid"])
+    t = lambda a: torch.as_tensor(a, device=inputs.xy.device)
+    live = []
+    for b, v in enumerate(branches):
+        i, j = min(hub, v), max(hub, v)
+        oi, oj = _pair_obs(vid, tid, i, j)
+        if len(oi) >= 16:
+            live.append((b, oi, oj, float(intr_np[iid[i], 0])))
+
+    def buckets(rows, pixels):
+        """Rows by padded capacity, as packed (x1, x2, mask) arrays."""
+        caps = {}
+        for r in rows:
+            caps.setdefault(max(64, 1 << int(np.ceil(np.log2(len(r[1]))))),
+                            []).append(r)
+        for cap, grp in sorted(caps.items()):
+            x1 = np.zeros((len(grp), cap, 2), xn.dtype)
+            x2 = np.zeros((len(grp), cap, 2), xn.dtype)
+            mask = np.zeros((len(grp), cap), bool)
+            for k, (_, oi, oj, f) in enumerate(grp):
+                s = f if pixels else 1.0
+                x1[k, :len(oi)] = xn[oi] * s
+                x2[k, :len(oi)] = xn[oj] * s
+                mask[k, :len(oi)] = True
+            yield grp, x1, x2, mask
+
+    planar = set()
+    h_iters = min(cfg.ransac_iters, 512)
+    for grp, x1, x2, mask in buckets(live, True):
+        fs = np.array([r[3] for r in grp])
+        idx = draws("stellar_h", mask, h_iters, 4,
+                    ids=[(r[0],) for r in grp])
+        res = ransac.acransac_h_batch(
+            None, t(x1), t(x2), t(mask),
+            t(np.array([ransac._logalpha0_point(2.0 * f, 2.0 * f)
+                        for f in fs], np.float32)),
+            t(np.full(len(grp), cfg.max_err_px ** 2, np.float32)),
+            iters=h_iters, idx=t(idx))
+        valid, num = res.valid.cpu().numpy(), res.num_inliers.cpu().numpy()
+        for k, r in enumerate(grp):
+            if valid[k] and num[k] >= h_ratio_threshold * len(r[1]):
+                planar.add(r[0])
+
+    best = {}
+    pending = [r for r in live if r[0] not in planar]
+    for attempt in range(attempts):
+        retry = []
+        for grp, x1, x2, mask in buckets(pending, False):
+            fs = np.array([r[3] for r in grp])
+            idx = draws("stellar_e", mask, cfg.ransac_iters, 5,
+                        ids=[(r[0], attempt) for r in grp])
+            x1b, x2b, maskb = t(x1), t(x2), t(mask)
+            re = ransac.acransac_e_batch(
+                None, x1b, x2b, maskb,
+                t(np.full(len(grp), math.log10(2.0), np.float32)),
+                t(((cfg.max_err_px / fs) ** 2).astype(np.float32)),
+                iters=cfg.ransac_iters, idx=t(idx))
+            Rb, tb, nval = geometry.decompose_essential(
+                re.model, x1b, x2b, mask=re.inliers & maskb)
+            valid = re.valid.cpu().numpy()
+            n_inl = re.num_inliers.cpu().numpy()
+            inl = re.inliers.cpu().numpy()
+            Rb, tb, nval = Rb.cpu().numpy(), tb.cpu().numpy(), \
+                nval.cpu().numpy()
+            for k, (b, oi, oj, _) in enumerate(grp):
+                if not valid[k]:
+                    retry.append(grp[k])
+                    continue
+                frac = float(nval[k]) / max(int(n_inl[k]), 1)
+                if b not in best or frac > best[b][0]:
+                    best[b] = (frac, Rb[k], tb[k], oi, oj, inl[k, :len(oi)])
+                if frac < min_valid_frac:
+                    retry.append(grp[k])
+        pending = retry
+    return {b: v[1:] for b, v in best.items() if v[0] >= min_valid_frac}
+
+
+def _midpoint_hub_depths(xh: np.ndarray, xv: np.ndarray,
+                         Rj: np.ndarray, Cj: np.ndarray) -> np.ndarray:
+    """Hub-frame depths of two-ray midpoints. ``xh``/``xv``: (N, 2)
+    normalized coords in the hub / neighbour cameras; ``Rj``, ``Cj``: the
+    neighbour pose in the hub frame (x_cam = Rj (X - Cj)). Negative or
+    ill-conditioned rows come back <= 0."""
+    dh = np.concatenate([xh, np.ones((len(xh), 1))], 1)
+    dh /= np.linalg.norm(dh, axis=1, keepdims=True)
+    dv = np.concatenate([xv, np.ones((len(xv), 1))], 1) @ Rj  # R^T x
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True)
+    dhv = np.sum(dh * dv, 1)
+    det = 1.0 - dhv * dhv
+    t = (dh @ Cj - dhv * (dv @ Cj)) / np.maximum(det, 1e-9)
+    t = np.where(det > 1e-9, t, -1.0)
+    return t * dh[:, 2]
+
+
+def _stellar_seed(inputs: SfMInputs, table: tracks_mod.TrackTable,
+                  draws: SampleProvider, cfg: IncrementalConfig,
+                  num_views: int, xn: np.ndarray, host: Dict,
+                  max_branches: int = 6):
+    """Stellar initializer: a local reconstruction around the
+    best-connected hub view (OpenMVG's SfMSceneInitializerStellar, the v2
+    engine's menu entry).
+
+    1. hub = the view with the largest summed co-visibility;
+    2. each hub edge gets a robust relative pose (unit baseline) and
+       hub-ray depths of its inlier tracks; an edge that a homography
+       explains is left to resection (``_hub_edges``, batched);
+    3. the edges' baseline scales are reconciled by a log least squares
+       over the depth ratios of tracks shared between edges;
+    4. every edge connected to the first one becomes a seeded pose.
+
+    Returns (hub, {view: (R, C)}, deactivate_rows) or None when fewer than
+    two edges survive (the caller falls back to MaxPair)."""
+    cand, counts = tracks_mod.covisibility_pairs(table, num_views,
+                                                 min_count=30)
+    if len(cand) == 0:
+        return None
+    strength = np.zeros(num_views, np.int64)
+    np.add.at(strength, cand[:, 0], counts)
+    np.add.at(strength, cand[:, 1], counts)
+    hub = int(np.argmax(strength))
+    on_hub = (cand[:, 0] == hub) | (cand[:, 1] == hub)
+    branches = [int(a if b == hub else b)
+                for a, b in cand[on_hub][:2 * max_branches]]
+
+    tid_np = host["tid"]
+    poses_e = _hub_edges(inputs, xn, hub, branches, draws, cfg, host)
+    edges = []    # (view, R, C_unit, {track: depth}, deact rows, hub in/out)
+    for b, v in enumerate(branches):
+        if len(edges) >= max_branches:
+            break
+        i = min(hub, v)
+        if b not in poses_e:
+            # no robust pose, or H-degenerate (its E would poison the pod's
+            # scale graph): the view is left to resection
+            continue
+        rel = poses_e[b]
+        # estimation frame: view i at identity; x_j = Rrel (X - Cj') with
+        # Cj' = -Rrel^T trel
+        Rrel, trel, oi, oj, inl = rel
+        if int(inl.sum()) < cfg.min_initial_inliers:
+            continue
+        if hub == i:
+            Rj, Cj = Rrel, -Rrel.T @ trel            # v's pose in hub frame
+            oh, ov = oi, oj
+        else:
+            # estimated hub-in-v; inverted to v-in-hub: R_v = Rrel^T, C_v = t
+            Rj, Cj = Rrel.T, trel
+            oh, ov = oj, oi
+        depths = _midpoint_hub_depths(xn[oh[inl]], xn[ov[inl]], Rj, Cj)
+        good = depths > 1e-6
+        if good.sum() < cfg.min_initial_inliers // 2:
+            continue
+        dmap = dict(zip(tid_np[oh[inl]][good].tolist(),
+                        depths[good].tolist()))
+        # a neighbour's rows are tested by one hub edge only, so its
+        # outliers go; a hub row goes only if every edge that tested it
+        # found it an outlier
+        edges.append((v, Rj, Cj, dmap, ov[~inl], oh[inl], oh[~inl]))
+
+    if len(edges) < 2:
+        return None
+
+    # --- reconcile the edges' baseline scales (log least squares) ---------
+    k_e = len(edges)
+    rows, rhs = [], []
+    for a in range(k_e):
+        for b in range(a + 1, k_e):
+            da, db = edges[a][3], edges[b][3]
+            common = set(da) & set(db)
+            if len(common) < 5:
+                continue
+            logr = np.log([da[t] / db[t] for t in common
+                           if da[t] > 0 and db[t] > 0])
+            if len(logr) < 5:
+                continue
+            row = np.zeros(k_e)
+            row[a], row[b] = 1.0, -1.0
+            rows.append(row)
+            rhs.append(-float(np.median(logr)))   # s_a d_a = s_b d_b
+    if not rows:
+        return None
+    # keep the edges reachable from edge 0 through the constraints
+    adj = [set() for _ in range(k_e)]
+    for row in rows:
+        a, b = int(np.argmax(row)), int(np.argmin(row))
+        adj[a].add(b)
+        adj[b].add(a)
+    seen = {0}
+    stack = [0]
+    while stack:
+        n = stack.pop()
+        for m in adj[n]:
+            if m not in seen:
+                seen.add(m)
+                stack.append(m)
+    keep = sorted(seen)
+    if len(keep) < 2:
+        return None
+    remap = {e: i for i, e in enumerate(keep)}
+    A = np.zeros((len(rows) + 1, len(keep)))
+    bvec = np.zeros(len(rows) + 1)
+    nrow = 0
+    for row, r in zip(rows, rhs):
+        a, b = int(np.argmax(row)), int(np.argmin(row))
+        if a in remap and b in remap:
+            A[nrow, remap[a]] = 1.0
+            A[nrow, remap[b]] = -1.0
+            bvec[nrow] = r
+            nrow += 1
+    A[nrow, 0] = 1.0          # anchor: the first edge's scale is 1
+    logs = np.linalg.lstsq(A[:nrow + 1], bvec[:nrow + 1], rcond=None)[0]
+    scales = np.exp(logs)
+
+    poses = {hub: (np.eye(3), np.zeros(3))}
+    deact_nbr, hub_in, hub_out = [], [], []
+    for i, e in enumerate(keep):
+        v, Rj, Cj, _, deact_v, oh_in, oh_out = edges[e]
+        poses[v] = (Rj, Cj * scales[i])
+        deact_nbr.append(deact_v)
+        hub_in.append(oh_in)
+        hub_out.append(oh_out)
+    hub_deact = np.setdiff1d(np.concatenate(hub_out),
+                             np.concatenate(hub_in))
+    return hub, poses, np.concatenate(deact_nbr + [hub_deact])
+
+
 def run_incremental(inputs: SfMInputs,
                     initial_pair: Optional[Tuple[int, int]] = None,
                     cfg: IncrementalConfig = IncrementalConfig(),
@@ -360,18 +616,16 @@ def run_incremental(inputs: SfMInputs,
                     sample_provider: Optional[SampleProvider] = None
                     ) -> SfMResult:
     """Run the incremental pipeline on ``device`` (default cuda; raises with
-    no card unless the CPU is asked for). ``initial_pair=None`` selects the
-    pair (v2 MaxPair); passing a pair reproduces v1. ``sample_provider``:
-    see the module docstring.
+    no card unless the CPU is asked for). ``initial_pair=None`` seeds from
+    ``cfg.initializer`` (v2: MaxPair, or a stellar pod that falls back to
+    MaxPair when fewer than two hub edges survive); passing a pair
+    reproduces v1 and ignores the initializer. ``sample_provider``: see the
+    module docstring.
 
     ``center_priors``: optional (V, 3) camera-center priors in a local
     metric frame (GPS -> ENU; NaN rows for views without one). The
     reconstruction runs in a free gauge and is Sim3-aligned to the priors
     before a final BA with the center-prior term at ``prior_weight``."""
-    if initial_pair is None and cfg.initializer != "maxpair":
-        raise NotImplementedError(
-            f"initializer {cfg.initializer!r}: only maxpair is ported; the "
-            "stellar initializer waits for a later slice (ROADMAP §1 item 6)")
     dev = runtime.resolve_device(device)
     draws = sample_provider or default_provider(seed)
     inputs = inputs._replace(**{k: getattr(inputs, k).to(dev) for k in (
@@ -400,34 +654,46 @@ def run_incremental(inputs: SfMInputs,
     table = tracks_mod.TrackTable(tid_np, vid_np,
                                   inputs.feature_id.cpu().numpy(), T)
 
-    # --- initialization: the user's pair (v1) or MaxPair ------------------
+    # --- initialization: a stellar pod, the user's pair (v1) or MaxPair ---
     t_init0 = time.perf_counter()
+    pod_size = 0
     with record_function("triangulation.init"), torch.no_grad():
         xn = _normalized_xy(inputs, intr).cpu().numpy()
-        if initial_pair is not None:
-            # v1: the user's pair, a serial robust pose with retries
-            i0, j0 = initial_pair
-            rel = (_relative_pose(inputs, xn, i0, j0, draws, cfg, host)
-                   or _relative_pose(inputs, xn, i0, j0, draws, cfg, host,
-                                     kind="init_pair_retry", attempts=1,
-                                     min_valid_frac=0.0))
-            if rel is None:
-                raise ValueError(
-                    f"initial pair {initial_pair} has no robust E")
-            Rrel, trel, oi, oj, inl = rel
-        else:
-            sel = _select_initial_pose(inputs, table, draws, cfg, V, xn,
-                                       host)
-            if sel is None:
-                raise ValueError(
-                    "no initial pair with a cheirality-consistent pose")
-            i0, j0, Rrel, trel, oi, oj, inl = sel
-        R[j0] = torch.as_tensor(Rrel, dtype=dtype, device=dev)
-        C[j0] = torch.as_tensor(-Rrel.T @ trel, dtype=dtype, device=dev)
-        pose_mask[[i0, j0]] = True
-        # deactivate pair observations that failed the E filter
-        obs_active[oi[~inl]] = False
-        obs_active[oj[~inl]] = False
+        if initial_pair is None and cfg.initializer == "stellar":
+            pod = _stellar_seed(inputs, table, draws, cfg, V, xn, host)
+            if pod is not None:
+                i0, poses, deact = pod
+                for v, (Rv, Cv) in poses.items():
+                    R[v] = torch.as_tensor(Rv, dtype=dtype, device=dev)
+                    C[v] = torch.as_tensor(Cv, dtype=dtype, device=dev)
+                    pose_mask[v] = True
+                obs_active[deact] = False
+                pod_size = len(poses)
+        if pod_size == 0:
+            if initial_pair is not None:
+                # v1: the user's pair, a serial robust pose with retries
+                i0, j0 = initial_pair
+                rel = (_relative_pose(inputs, xn, i0, j0, draws, cfg, host)
+                       or _relative_pose(inputs, xn, i0, j0, draws, cfg,
+                                         host, kind="init_pair_retry",
+                                         attempts=1, min_valid_frac=0.0))
+                if rel is None:
+                    raise ValueError(
+                        f"initial pair {initial_pair} has no robust E")
+                Rrel, trel, oi, oj, inl = rel
+            else:
+                sel = _select_initial_pose(inputs, table, draws, cfg, V, xn,
+                                           host)
+                if sel is None:
+                    raise ValueError(
+                        "no initial pair with a cheirality-consistent pose")
+                i0, j0, Rrel, trel, oi, oj, inl = sel
+            R[j0] = torch.as_tensor(Rrel, dtype=dtype, device=dev)
+            C[j0] = torch.as_tensor(-Rrel.T @ trel, dtype=dtype, device=dev)
+            pose_mask[[i0, j0]] = True
+            # deactivate pair observations that failed the E filter
+            obs_active[oi[~inl]] = False
+            obs_active[oj[~inl]] = False
         sync()
     init_elapsed = time.perf_counter() - t_init0
 
@@ -662,6 +928,9 @@ def run_incremental(inputs: SfMInputs,
         "order_added": order_added,
         "profile": dict(prof),
         "init_hub": int(i0),
-        "init_pair": (int(i0), int(j0)),
     }
+    if pod_size:
+        stats["stellar_pod_size"] = pod_size
+    else:
+        stats["init_pair"] = (int(i0), int(j0))
     return SfMResult(R, C, pose_mask, X, track_ok, obs_active, intr, stats)

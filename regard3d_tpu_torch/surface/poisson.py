@@ -36,6 +36,7 @@ the copy of chi to the host), ``surface.marching``, ``surface.trim``.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -150,16 +151,37 @@ def _smoothed_density(W: torch.Tensor, n: int) -> torch.Tensor:
                                       * torch.exp(-2.0 * k2)))
 
 
+def grid_stats(xyz: np.ndarray, depth: int) -> dict:
+    """The grid ``reconstruct`` lays over a cloud: the cloud's bounding box
+    and its diagonal, the grid size, its cell (the box's longest axis,
+    with the margin, over the grid), the cells that hold a point and the
+    points per such cell. Host numpy; the cloud's frame sets the cell."""
+    n = min(2 ** depth, 256)
+    xyz = np.asarray(xyz, np.float32)
+    unit, scale, _ = normalize_points(xyz)
+    cell = np.clip(np.floor(unit * (n - 1)).astype(np.int64), 0, n - 2)
+    occupied = len(np.unique((cell[:, 0] * n + cell[:, 1]) * n + cell[:, 2]))
+    lo, hi = xyz.min(0).astype(np.float64), xyz.max(0).astype(np.float64)
+    return {"points": len(xyz), "bbox_lo": lo.tolist(),
+            "bbox_hi": hi.tolist(), "diagonal": float(np.linalg.norm(hi - lo)),
+            "grid": n, "cell_size": float(scale) / (n - 1),
+            "occupied_cells": occupied,
+            "points_per_cell": len(xyz) / max(occupied, 1)}
+
+
 def reconstruct(xyz: np.ndarray, normals: np.ndarray, depth: int = 7,
                 samples_per_node: float = 1.0, point_weight: float = 0.0,
-                trim_threshold: float = 7.0, device=None):
+                trim_threshold: float = 7.0, device=None,
+                stats: Optional[dict] = None):
     """Oriented cloud -> triangle mesh (vertices in input coordinates), on
     ``cuda`` unless ``device="cpu"``.
 
     Args mirror the reference surface dialog: ``depth`` (grid 2^depth,
     capped 256), ``samples_per_node`` (smoothing scale), ``point_weight``
     (screening), ``trim_threshold`` (0..10 density trim, 0 = keep all —
-    SurfaceTrimmer --trim parity at the same scale).
+    SurfaceTrimmer --trim parity at the same scale). ``stats``: a dict
+    that receives :func:`grid_stats` of the cloud and the faces before and
+    after the trim.
 
     Returns (verts (M, 3) float, faces (T, 3) int32).
     """
@@ -186,6 +208,9 @@ def reconstruct(xyz: np.ndarray, normals: np.ndarray, depth: int = 7,
             chi_np = _np(chi)
         with record_function("surface.marching"):
             verts_u, faces = marching.marching_tetrahedra(chi_np, iso)
+        if stats is not None:
+            stats.update(grid_stats(xyz, depth),
+                         faces_before_trim=len(faces))
 
         if trim_threshold > 0 and len(faces):
             # trim triangles lying in low-density space (SurfaceTrimmer
@@ -202,5 +227,7 @@ def reconstruct(xyz: np.ndarray, normals: np.ndarray, depth: int = 7,
                 faces = faces[keep]
                 verts_u, faces = marching.compact_mesh(verts_u, faces)
 
+    if stats is not None:
+        stats["faces"] = len(faces)
     verts = verts_u * scale + offset
     return verts.astype(np.float64), faces

@@ -173,6 +173,37 @@ def test_match_pair_block_vs_reference(rng, bf16):
     np.testing.assert_array_equal(it[0, :40].numpy(), np.arange(40))
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_match_pairs_batched_vs_reference(rng, masked):
+    """Batched single-pair matching at ``tests/test_match.py``'s size (3
+    pairs of 128 x 128, D = 256, 16 planted matches), against the
+    reference's plain path; with masked rows on both sides as well."""
+    P, m, n = 3, 128, 128
+    A, B = (np.stack(x) for x in zip(*(make_descs(rng, m, n, planted=16)
+                                       for _ in range(P))))
+    ma = np.ones((P, m), bool)
+    mb = np.ones((P, n), bool)
+    if masked:
+        ma[:, 100:] = False
+        mb[:, 90:] = False
+        mb[1, 3] = False
+    ij, dj, okj = jm.match_pairs_batched(
+        jnp.asarray(A), jnp.asarray(ma), jnp.asarray(B), jnp.asarray(mb),
+        0.8, False, 128, 128)
+    before = dict(tm.LAUNCHES)
+    it, dt, okt = tm.match_pairs_batched(torch.tensor(A), torch.tensor(ma),
+                                         torch.tensor(B), torch.tensor(mb))
+    assert tm.LAUNCHES == before and it.shape == (P, m)
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+    np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL,
+                               atol=ATOL)
+    for p in range(P):
+        keep = mb[p, :16] if masked else np.ones(16, bool)
+        np.testing.assert_array_equal(it[p, :16].numpy()[keep],
+                                      np.arange(16)[keep])
+
+
 def test_exact_ties_lowest_index_wins(rng):
     """Duplicate B rows give bit-equal distances: the lowest column wins,
     d2 == d1, and the ratio test rejects the row — in the reference's

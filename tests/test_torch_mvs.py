@@ -295,6 +295,7 @@ def fountain(tmp_path_factory):
     projects into a view; the port's scene and the reference's."""
     import chip_smoke
     from regard3d_tpu_torch.core import cameras
+    from regard3d_tpu_torch.tools.dense_normals import FOUNTAIN_QUADS
     from regard3d_tpu_torch.core.sfm_data import save_npz
     from regard3d_tpu_torch.core.types import PINHOLE, Scene
     from regard3d_tpu_torch.ingest import synth
@@ -303,7 +304,7 @@ def fountain(tmp_path_factory):
     rng = np.random.default_rng(1)
     X = np.concatenate([o + rng.uniform(0, 1, (400, 1)) * u
                         + rng.uniform(0, 1, (400, 1)) * v
-                        for o, u, v in chip_smoke.FOUNTAIN_QUADS])
+                        for o, u, v in FOUNTAIN_QUADS])
     params = T([ds["f"], hw / 2, hw / 2, 0, 0, 0, 0, 0, 0])
     lms, views, xys = [], [], []
     for v in range(n):
@@ -346,11 +347,12 @@ def test_densify_fountain_matches_reference(fountain):
     alike (the share within 1% of the extent, and the median |cos| between
     each normal and its quad's, equal within 1e-3), and both meet
     ``chip_smoke.py`` (i)'s cloud gates with the normals at >= 0.98."""
+    from regard3d_tpu_torch.tools.dense_normals import DENSE_KW
     cs, ds = fountain["cs"], fountain["ds"]
     xyz_w, nrm_w, _, _ = jdrv.densify_scene(fountain["js"], ds["images"],
-                                            **cs.DENSE_KW)
+                                            **DENSE_KW)
     xyz, nrm, _, _ = tdrv.densify_scene(fountain["ts"], ds["images"],
-                                        device="cpu", **cs.DENSE_KW)
+                                        device="cpu", **DENSE_KW)
     assert abs(len(xyz) - len(xyz_w)) <= 0.02 * len(xyz_w)
     geo_w = cs.dense_geometry(fountain["ts"], ds["Cs"], xyz_w, nrm_w)
     geo = cs.dense_geometry(fountain["ts"], ds["Cs"], xyz, nrm)

@@ -34,7 +34,11 @@ from regard3d_tpu_torch.pipeline import triangulation_step as ttri
 from regard3d_tpu_torch.sfm import incremental as tinc
 from regard3d_tpu_torch.surface import poisson as tpo
 from regard3d_tpu_torch.surface import texture as ttx
+from regard3d_tpu_torch.sfm import global_sfm as tglob
 from regard3d_tpu_torch.tools import accuracy as tacc
+from regard3d_tpu_torch.tools import dense_normals as tnorm
+from regard3d_tpu_torch.tools import profile_sfm as tprof
+from regard3d_tpu_torch.tools import scale as tscale
 
 # several pytest workers share the host: a small intra-op pool per worker
 # keeps torch from oversubscribing the cores
@@ -115,6 +119,11 @@ def test_port_modules_load_without_jax():
             "regard3d_tpu_torch.export.sfm_output",
             "regard3d_tpu_torch.export.external_mvs",
             "regard3d_tpu_torch.tools.photos"} <= set(port_modules())
+    # the engine menu and the scale axis
+    assert {"regard3d_tpu_torch.sfm.global_sfm",
+            "regard3d_tpu_torch.tools.scale",
+            "regard3d_tpu_torch.tools.profile_sfm",
+            "regard3d_tpu_torch.tools.dense_normals"} <= set(port_modules())
 
 
 @pytest.fixture()
@@ -159,6 +168,21 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
         tlm.bundle_adjust(state, obs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tacc.run_dataset("fountain")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tacc.run_dataset("fountain", engine="global")
+    # the global engine and its averaging, the scale, engine and normals
+    # tools
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tglob.run_global(inputs)
+    motion = tglob.RelativeMotion(0, 1, np.eye(3), np.array([1.0, 0, 0]),
+                                  50, np.zeros(0), np.zeros(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tglob.average_rotations([motion], 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tglob.average_translations([motion], np.eye(3)[None].repeat(2, 0), 2)
+    for fn in (tscale.run_scale, tprof.run_profile, tnorm.run_normals):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(views=2)
 
 
 @pytest.mark.parametrize("cmd", tcli.COMPUTE_COMMANDS)

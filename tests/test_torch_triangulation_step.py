@@ -4,7 +4,13 @@ against the JAX package end to end, on the CPU: both packages'
 at 256 px), the port with the reference's draws (``Replay`` of
 ``tests/test_torch_incremental.py``). The port must pose the reference's
 cameras, triangulate its track count within 2%, and write artifacts that
-the reference's readers load.
+the reference's readers load. The engine menu on the same matches: the
+global engine (``matches.e.txt``, the reference's per-pair draws,
+``GlobalReplay``) and the stellar initializer (``Replay(stellar=True)``;
+on these views it falls back to MaxPair in both packages) pose the
+reference's cameras with the track count within 2%, the rms
+within 5% and centres within 1e-3 of the extent of the reference's after
+Sim3.
 """
 
 import json
@@ -22,6 +28,7 @@ from regard3d_tpu.pipeline import triangulation_step as jts
 from regard3d_tpu_torch.ingest import synth as tsynth
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
 from regard3d_tpu_torch.pipeline import triangulation_step as tts
+from tests.test_torch_global_sfm import GlobalReplay
 from tests.test_torch_incremental import Replay
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
@@ -51,7 +58,8 @@ def stage(tmp_path_factory):
     sj = jts.run_triangulation(matches, ref, images, **kw)
     st = tts.run_triangulation(matches, port, images, device="cpu",
                                sample_provider=Replay(), **kw)
-    return dict(ref=ref, port=port, sj=sj, st=st, ds=ds)
+    return dict(ref=ref, port=port, sj=sj, st=st, ds=ds, matches=matches,
+                images=images, kw=kw, base=base)
 
 
 def test_stage_matches_reference_and_artifacts_cross(stage):
@@ -89,3 +97,45 @@ def test_stage_matches_reference_and_artifacts_cross(stage):
     with open(os.path.join(port, "Reconstruction_Report.html")) as f:
         html = f.read()
     assert "Reconstruction report" in html and "<svg" in html
+
+
+@pytest.mark.parametrize("engine", ["global", "stellar"])
+def test_engine_menu_matches_reference(stage, engine):
+    import jax
+    if engine == "global":
+        kw = dict(engine="global")
+        draws = GlobalReplay(jax.random.PRNGKey(0))
+    else:
+        kw = dict(initializer="stellar")
+        draws = Replay(stellar=True)
+    ref, port = (str(stage["base"] / f"{engine}_{tag}")
+                 for tag in ("ref", "port"))
+    sj = jts.run_triangulation(stage["matches"], ref, stage["images"],
+                               params=jts.TriangulationParams(**kw),
+                               **stage["kw"])
+    st = tts.run_triangulation(stage["matches"], port, stage["images"],
+                               params=tts.TriangulationParams(**kw),
+                               device="cpu", sample_provider=draws,
+                               **stage["kw"])
+    assert st["num_cameras"] == sj["num_cameras"] == 4
+    assert abs(st["num_tracks"] - sj["num_tracks"]) <= 0.02 * sj["num_tracks"]
+    assert st["rms_px"] == pytest.approx(sj["rms_px"], rel=0.05)
+    if engine == "stellar":
+        # here every hub edge is planar (a homography explains >= 92% of
+        # its matches) in both packages, so both fall back to MaxPair
+        for key in ("init_hub", "stellar_pod_size", "init_pair"):
+            assert st.get(key) == sj.get(key), key
+        assert draws.calls[0] == "stellar_h"
+    else:
+        assert st["num_relative_motions"] == sj["num_relative_motions"]
+    a = jsd.load_npz(os.path.join(port, "scene.npz"))
+    b = jsd.load_npz(os.path.join(ref, "scene.npz"))
+    Ct, Cj = np.asarray(a.poses.C), np.asarray(b.poses.C)
+    extent = np.ptp(stage["ds"]["Cs"][:4], axis=0).max()
+    aligned = jmet.umeyama(Ct, Cj).apply(Ct)
+    err = np.linalg.norm(aligned - Cj, axis=1).max() / np.ptp(
+        Cj, axis=0).max()
+    assert err <= 1e-3, err
+    assert jmet.ate_rmse(Ct, stage["ds"]["Cs"][:4]) < 0.08
+    with open(os.path.join(port, "sfm_data.json")) as f:
+        assert len(json.load(f)["extrinsics"]) == 4
