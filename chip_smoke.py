@@ -5,9 +5,11 @@ Usage: ``python3 chip_smoke.py`` from the repository root, on a machine with
 one CUDA card and the CUDA toolkit (nvcc). Phases, each of which fails the
 run if it fails:
 
-(a) build the port's CUDA kernels from ``regard3d_tpu_torch/csrc`` and
-    print the card; fail unless the three modes of the bf16 kernel hold the
-    same number of tensor-core instructions (HMMA) in the built SASS;
+(a) build the port's CUDA kernels from ``regard3d_tpu_torch/csrc`` (nvcc)
+    and, beside them, its host library from ``native/r3d_native.cpp``
+    (g++), and print the card; fail unless the three modes of the bf16
+    kernel hold the same number of tensor-core instructions (HMMA) in the
+    built SASS;
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
@@ -62,6 +64,23 @@ run if it fails:
     gates and artifact checks; per engine span (``triangulation.<phase>``)
     the host time, device busy time, idle share and operations, the
     stellar run's pod size; one ``engines`` JSON line;
+(m) the detector menu and the float64 engines at full width: phase (b)'s
+    stage with each of GFTT, ORB, BRISK (corners on the card), MSER and
+    TBMR (the port's native binding to ``native/r3d_native.cpp``, built by
+    g++), each held to: every view's features parse with 1..4096
+    keypoints inside the image, LIOP norms in (0.2, 1.01) (0: a flat
+    patch), K1 f32 launched; TBMR's F inliers at a median < 1 px from the
+    exact geometry on at least half the pairs (the other detectors' LIOP
+    patches span a pixel or less and validate pairs on wrong matches in
+    the reference too: their counts and medians are printed); view 0 on
+    the card against the CPU (corners
+    >= 99% in their tie group within 1e-3 px; host rows identical,
+    descriptors >= 97% within 1e-4 and cosine > 0.9995: LIOP's gate at
+    the CPU tests' share for small patches); one ``detectors`` line. Then ``run_triangulation
+    (f64=True)`` on (b)'s matches with incremental2 + MaxPair and with the
+    global engine, unprofiled, held to (g)'s gates and artifact checks,
+    float64 in scene.npz and a bit-identical f64 ``bundle_adjust`` repeat;
+    one ``f64`` line beside (g)'s and (l)'s f32 numbers;
 (k) the scale axis at full width: ``regard3d_tpu_torch.tools.scale.
     run_scale`` on the synthetic city's 200-view open corridor (256 px,
     window 8, no retrieval: 1564 pairs, 1024 keypoints, 1024 RANSAC
@@ -122,10 +141,11 @@ run if it fails:
     (bounding box, cell, occupied cells, faces after the trim);
 (d) print the ``kernels`` JSON line (launches from the run of the path each
     kernel lies on: (b), its flann run, or (f), and K1's launches in (j)'s
-    ``matches`` as ``launches_cli``, in (k)'s run as ``launches_scale``
-    with the timings at (k)'s shape under ``scale``; (g), (h), (i) and (l)
-    launch no kernel of their own), then the card's name and power limit,
-    and the final ``{"ok": true, ...}`` line.
+    ``matches`` as ``launches_cli``, in (m)'s runs as
+    ``launches_detectors``, in (k)'s run as ``launches_scale``
+    with the timings at (k)'s shape under ``scale``; (g), (h), (i), (l)
+    and (m)'s f64 runs launch no kernel of their own), then the card's
+    name and power limit, and the final ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is available.
 """
@@ -246,15 +266,23 @@ def sym_epipolar_px(F, p1, p2):
 
 
 def phase_build():
-    """(a) build the kernels; then count the tensor-core instructions of
-    each mode of the bf16 kernel in the built SASS: ptxas deletes an mma
-    whose result is dead, so ``mm_only`` must keep as many HMMA as
-    ``full``, or it would time only part of the product."""
+    """(a) build the kernels and the host library; then count the
+    tensor-core instructions of each mode of the bf16 kernel in the built
+    SASS: ptxas deletes an mma whose result is dead, so ``mm_only`` must
+    keep as many HMMA as ``full``, or it would time only part of the
+    product."""
+    from regard3d_tpu_torch import native
     from regard3d_tpu_torch.kernels import _build
     from regard3d_tpu_torch.kernels import match as match_mod
     t0 = time.time()
-    lib = _build.build(match_mod._SOURCE)
-    log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
+    # nvcc and g++ side by side: the matcher's kernels and (m)'s host
+    # library (built here, so no CLI process of (j) builds anything)
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        host = pool.submit(native.build)
+        lib = _build.build(match_mod._SOURCE)
+        log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
+        log(f"(a) built {os.path.basename(host.result())} from "
+            f"{os.path.relpath(native.SOURCE)} in {time.time() - t0:.1f} s")
     hmma = _build.hmma_counts(lib)
     log(f"(a) HMMA per bf16 kernel instance (mode,D): {hmma}")
     for dc in ("0", "144"):                  # D at run time, D = 144
@@ -264,28 +292,34 @@ def phase_build():
               f"time): {n}")
 
 
-def run_stage(ds, out):
+def run_stage(ds, out, detector="fast-akaze"):
     """The main path: the port's stage entry point at the smoke's shapes."""
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     return cm.run_compute_matches(ds["images"], out, cfg=cm.MatchConfig(),
                                   focals=np.full(len(ds["images"]),
                                                  ds["f"] * 1.03),
-                                  max_keypoints=MAX_KP)
+                                  max_keypoints=MAX_KP, detector=detector)
 
 
-def epipolar_check(ds, out):
-    """F-validated pairs of a match directory and the median symmetric
-    epipolar distance of their inliers against the exact geometry."""
+def epipolar_dists(ds, out):
+    """Per F-validated pair of a match directory, the symmetric epipolar
+    distances of its inliers against the exact geometry."""
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline import features as fm
     f_matches = cm.load_matches_txt(os.path.join(out, "matches.f.txt"))
     kps, _ = fm.load_all_padded(out, N_CAMS, device="cpu")
     xy = kps.xy.numpy()
-    dists = [sym_epipolar_px(true_fundamental(ds, i, j), xy[i][m[:, 0]],
-                             xy[j][m[:, 1]])
-             for (i, j), m in f_matches.items()]
+    return {(i, j): sym_epipolar_px(true_fundamental(ds, i, j),
+                                    xy[i][m[:, 0]], xy[j][m[:, 1]])
+            for (i, j), m in f_matches.items()}
+
+
+def epipolar_check(ds, out):
+    """F-validated pairs of a match directory and the median symmetric
+    epipolar distance of their inliers against the exact geometry."""
+    dists = list(epipolar_dists(ds, out).values())
     med = float(np.median(np.concatenate(dists))) if dists else float("inf")
-    return len(f_matches), med
+    return len(dists), med
 
 
 def phase_stage(ds, workdir):
@@ -807,8 +841,9 @@ def span_table(events, names):
     return rows
 
 
-def _bit_identical_ba(scene):
-    """Two bundle_adjust calls on the final scene: the same bits."""
+def _ba_problem(scene):
+    """The final scene as a BA problem: state, observations, the fixed
+    poses (unposed views and the first posed one) and (g)'s options."""
     from regard3d_tpu_torch.ba import lm
     pm = scene.poses.mask
     obs = scene.observations
@@ -817,13 +852,27 @@ def _bit_identical_ba(scene):
         view_id=obs.view_id.long(), intr_id=g,
         point_id=obs.landmark_id.long(),
         model=scene.intrinsics.model.long()[g], xy=obs.xy,
-        weight=obs.mask.float())
+        weight=obs.mask.to(obs.xy.dtype))
     state = lm.BAState(R=scene.poses.R, C=scene.poses.C,
                        intr=scene.intrinsics.params, X=scene.landmarks.X)
     fixed = ~pm.clone()
     fixed[int(torch.nonzero(pm)[0])] = True
     opts = lm.BAOptions(max_iterations=10, refine_intrinsics=True,
                         huber_delta_px=2.0)
+    return state, ba_obs, fixed, opts
+
+
+def final_cost(scene) -> float:
+    """The BA cost (Huber 2 px) of a run's final scene."""
+    from regard3d_tpu_torch.ba import lm
+    state, ba_obs, _, opts = _ba_problem(scene)
+    return float(lm.compute_cost(state, ba_obs, opts))
+
+
+def _bit_identical_ba(scene):
+    """Two bundle_adjust calls on the final scene: the same bits."""
+    from regard3d_tpu_torch.ba import lm
+    state, ba_obs, fixed, opts = _ba_problem(scene)
     outs = [lm.bundle_adjust(state, ba_obs, opts, fixed_pose_mask=fixed)
             for _ in range(2)]
     same = all(torch.equal(a, b) for a, b in zip(outs[0][0], outs[1][0]))
@@ -831,7 +880,8 @@ def _bit_identical_ba(scene):
     check(outs[0][1] == outs[1][1], "two bundle_adjust calls: other stats")
     return {"iterations": outs[0][1].iterations,
             "initial_cost": outs[0][1].initial_cost,
-            "final_cost": outs[0][1].final_cost, "bit_identical": same}
+            "final_cost": outs[0][1].final_cost, "bit_identical": same,
+            "dtype": str(outs[0][0].X.dtype)}
 
 
 def phase_sfm(ds, matches, workdir):
@@ -861,7 +911,7 @@ def phase_sfm(ds, matches, workdir):
             f"device ops")
     check(sum(r["device_ops"] for r in rows) > 0,
           "the triangulation stage ran nothing on the device")
-    log(json.dumps({"sfm": {
+    summary = {
         "cameras": stats["num_cameras"], "tracks": stats["num_tracks"],
         "observations": stats["num_observations"], "ate": ate,
         "rms_px": stats["rms_px"],
@@ -870,7 +920,10 @@ def phase_sfm(ds, matches, workdir):
         "init_pair": stats["init_pair"], "profile": stats["profile"],
         "elapsed_profiled_s": elapsed, "peak_device_gb": peak_gb,
         "focal_est": float(scene.intrinsics.params[0, 0]),
-        "focal_gt": float(ds["f"]), "ba_repeat": ba, "spans": rows}}))
+        "focal_gt": float(ds["f"]), "final_cost": final_cost(scene),
+        "ba_repeat": ba, "spans": rows}
+    log(json.dumps({"sfm": summary}))
+    return summary
 
 
 def phase_engines(ds, matches, workdir):
@@ -891,7 +944,8 @@ def phase_engines(ds, matches, workdir):
             stats = run_sfm(ds, matches, run_dir, **params)
         elapsed = time.time() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        _, ate = check_sfm(ds, run_dir, stats, f"(l) {tag} {elapsed:.1f} s:")
+        scene, ate = check_sfm(ds, run_dir, stats,
+                               f"(l) {tag} {elapsed:.1f} s:")
         rows = span_table(prof.profiler.kineto_results.events(),
                           ["triangulation." + ph for ph in phases])
         for r in rows:
@@ -907,12 +961,238 @@ def phase_engines(ds, matches, workdir):
             "observations": stats["num_observations"], "ate": ate,
             "rms_px": stats["rms_px"],
             "residual_median_px": stats["residual_median"],
+            "final_cost": final_cost(scene),
             "elapsed_profiled_s": elapsed, "peak_device_gb": peak_gb,
             "spans": rows,
             **{k: stats[k] for k in ("num_relative_motions", "init_hub",
                                      "stellar_pod_size", "init_pair",
                                      "profile") if k in stats}}
     log(json.dumps({"engines": out}))
+    return out
+
+
+# (m) the detector menu beside the default Fast-AKAZE, and the f64 engines
+MENU = ("gftt", "orb", "brisk", "mser", "tbmr")
+# the detectors whose F-validated pairs are not held to the exact geometry:
+# GFTT describes 3 px corners at kpSizeFactor 0.13, a LIOP patch under a
+# pixel, so its putative matches are mostly wrong and the filter validates
+# pairs on wrong matches in the reference as in the port
+# (tests/test_torch_detector_geometry.py runs both on the same views); its
+# counts and medians are printed. Every other detector's F-validated
+# pairs must lie at a median < 1 px, and TBMR, which describes its regions
+# at their size, must also validate half the pairs
+GEOMETRY_EXEMPT = ("gftt",)
+
+
+def liop_gate(a, b):
+    """(fraction within 1e-4 in L2, largest distance, smallest cosine); a
+    flat patch's zero descriptor must be zero in both."""
+    dist = np.linalg.norm(a - b, axis=1)
+    live = np.linalg.norm(a, axis=1) > 0.5
+    check(bool((live == (np.linalg.norm(b, axis=1) > 0.5)).all()),
+          "zero descriptors differ")
+    cos = np.sum(a * b, 1)[live]
+    return (float((dist <= 1e-4).mean()), float(dist.max()),
+            float(cos.min()) if len(cos) else 1.0)
+
+
+def _detector_on_both_devices(img, d, workdir):
+    """View 0 through detector ``d`` on the card and on the CPU (the plain
+    torch path): the corner detectors' keypoints in tie-group rank order,
+    the host detectors' .feat rows and their descriptors (LIOP on each
+    device)."""
+    from regard3d_tpu_torch.kernels import corners
+    from regard3d_tpu_torch.pipeline import features as fm
+    from regard3d_tpu_torch.tools.keypoint_agreement import rank_agreement
+    if d not in fm.HOST_DETECTORS:
+        fn = getattr(corners, f"detect_{d}")
+        rows = []
+        for dev in ("cuda", "cpu"):
+            k = fn(torch.as_tensor(img[None], device=dev),
+                   max_keypoints=MAX_KP)
+            rows.append(tuple(t[0].cpu().numpy() for t in (
+                k.xy, k.scale, k.score, k.mask)))
+        in_rank, frac = rank_agreement(rows[1], rows[0])
+        log(f"(m) {d} view 0, cuda against cpu: of {int(rows[1][3].sum())} "
+            f"keypoints {in_rank:.5f} at their rank, {frac:.5f} in their "
+            f"tie group")
+        check(frac >= 0.99, f"(m) {d}: cuda agrees with cpu on {frac:.4f}")
+        return {"keypoints_at_rank": in_rank, "keypoints_in_tie_group": frac}
+    got = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(workdir, f"view0_{d}_{dev}")
+        fm.extract_features([img], out, max_keypoints=MAX_KP, detector=d,
+                            device=dev)
+        got[dev] = fm.load_features(out, 0)
+    (pa, sa, aa, da), (pb, sb, ab, db) = got["cuda"], got["cpu"]
+    check(np.array_equal(pa, pb) and np.array_equal(sa, sb)
+          and np.array_equal(aa, ab), f"(m) {d}: .feat rows differ")
+    within, worst, cos = liop_gate(db, da)
+    log(f"(m) {d} view 0, cuda against cpu: {len(pa)} identical rows, "
+        f"descriptors {within:.5f} within 1e-4 (largest {worst:.2e}, "
+        f"cosine >= {cos:.6f})")
+    # LIOP's gate (ROADMAP §3: cosine > 0.9995) at the share of
+    # tests/test_torch_features.py for small patches: bilinear samples of
+    # a pixel-sized neighbourhood tie often, so f32 rounding moves a few
+    # pixels across an ordinal bin
+    check(within >= 0.97 and cos > 0.9995,
+          f"(m) {d}: descriptors {within:.4f} within 1e-4, cosine {cos}")
+    return {"rows_identical": True, "desc_within_1e-4": within,
+            "desc_max_l2": worst, "desc_min_cosine": cos}
+
+
+def phase_detectors(ds, workdir):
+    """(m) the detector menu at full width: ``run_compute_matches`` with
+    each of GFTT, ORB, BRISK, MSER and TBMR on (b)'s views, settings and
+    focals. Fails unless every view's features parse with 1..4096
+    keypoints inside the image, every LIOP norm lies in (0.2, 1.01) (or is
+    0: a flat patch, as the reference writes), K1 f32 was launched on that
+    run, the F-validated pairs' inliers lie at a median < 1 px from the
+    exact epipolar geometry (but for ``GEOMETRY_EXEMPT``, whose counts and
+    medians are printed) and TBMR validates half the pairs; view 0 on the
+    card agrees with the CPU. Times the ``.feat`` parse of TBMR's views
+    (``feat_parse``). One ``detectors`` line; returns K1's launches per
+    detector."""
+    from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.pipeline import compute_matches as cm
+    from regard3d_tpu_torch.pipeline import features as fm
+    n_pairs = N_CAMS * (N_CAMS - 1) // 2
+    rows, launches = {}, {}
+    for d in MENU:
+        out = os.path.join(workdir, f"matches_{d}")
+        match_mod.reset_launch_counts()
+        t0 = time.time()
+        stats = run_stage(ds, out, detector=d)
+        elapsed = time.time() - t0
+        launches[d] = match_mod.LAUNCHES["l2_top2_block_f32"]
+        zero = 0
+        for i in range(N_CAMS):
+            xy, sc, an, desc = fm.load_features(out, i)
+            n = len(xy)
+            check(1 <= n <= MAX_KP and n == stats["keypoints"][i]
+                  and desc.shape == (n, 144), f"(m) {d} view {i}: {n} rows")
+            check(bool(((xy >= 0) & (xy <= HW - 1)).all()),
+                  f"(m) {d} view {i}: keypoints outside the image")
+            norms = np.linalg.norm(desc, axis=1)
+            zero += int((norms == 0).sum())
+            check(bool(((norms == 0) | ((norms > 0.2) & (norms < 1.01)))
+                       .all()), f"(m) {d} view {i}: LIOP norms out of range")
+        files = {t: cm.load_matches_txt(os.path.join(out,
+                                                     f"matches.{t}.txt"))
+                 for t in ("putative", "f", "e", "h")}
+        dists = epipolar_dists(ds, out)
+        n_f = len(dists)
+        med = (float(np.median(np.concatenate(list(dists.values()))))
+               if dists else float("inf"))
+        on_geometry = sum(float(np.median(v)) < 1.0 for v in dists.values())
+        rows[d] = {
+            "keypoints": stats["keypoints"], "zero_descriptors": zero,
+            "pairs_putative": len(files["putative"]),
+            "pairs_f": len(files["f"]), "pairs_e": len(files["e"]),
+            "pairs_h": len(files["h"]),
+            "matches_putative": stats["matches_putative"],
+            "matches_f": stats["matches_f"],
+            "median_sym_epipolar_px": med if n_f else None,
+            "pairs_f_on_geometry": on_geometry,
+            "k1_launches": launches[d],
+            **{k: stats[k] for k in ("time_features_s", "time_matching_s",
+                                     "time_filter_s", "elapsed_s")},
+            "wall_s": elapsed}
+        log(f"(m) {d}: keypoints {min(stats['keypoints'])}-"
+            f"{max(stats['keypoints'])}, putative pairs "
+            f"{len(files['putative'])}, F/E/H {n_f}/{len(files['e'])}/"
+            f"{len(files['h'])}, median {med:.4f} px ({on_geometry} pairs "
+            f"on the geometry), K1 {launches[d]}, {elapsed:.1f} s")
+        check(launches[d] > 0, f"(m) {d}: the matcher kernel was not "
+              "launched")
+        if d == "tbmr":
+            check(n_f * 2 >= n_pairs, f"(m) {d}: {n_f} of {n_pairs} pairs "
+                  "F-validated")
+        if n_f and d not in GEOMETRY_EXEMPT:
+            check(med < 1.0, f"(m) {d}: median {med:.3f} px")
+        rows[d]["view0"] = _detector_on_both_devices(ds["images"][0], d,
+                                                     workdir)
+    rows["feat_parse"] = feat_parse_times(os.path.join(workdir,
+                                                        "matches_tbmr"))
+    log(json.dumps({"detectors": rows}))
+    return launches
+
+
+def feat_parse_times(out, repeats=5):
+    """Seconds to parse a match directory's ``.feat`` files (one pass over
+    the views, best of ``repeats``) through the native parser that
+    ``load_features`` calls and through ``np.loadtxt``; the rows must be
+    identical."""
+    from regard3d_tpu_torch import native
+    from regard3d_tpu_torch.pipeline import features as fm
+    paths = [fm.feat_path(out, i) for i in range(N_CAMS)]
+    best = {}
+    for name, parse in (("native_s", native.parse_feats),
+                        ("loadtxt_s", lambda p: np.loadtxt(
+                            p, np.float32, ndmin=2))):
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            got = [parse(p) for p in paths]
+            times.append(time.perf_counter() - t0)
+        best[name] = min(times)
+        best[name.replace("_s", "_rows")] = got
+    check(all(np.array_equal(a, b) for a, b in zip(best.pop("native_rows"),
+                                                   best["loadtxt_rows"])),
+          "(m) native and np.loadtxt parse different .feat rows")
+    rows = sum(len(a) for a in best.pop("loadtxt_rows"))
+    log(f"(m) .feat parse of {len(paths)} views, {rows} rows: native "
+        f"{best['native_s'] * 1e3:.2f} ms, np.loadtxt "
+        f"{best['loadtxt_s'] * 1e3:.2f} ms")
+    return {"views": len(paths), "rows": rows, **best}
+
+
+F64_FIELDS = ("poses.R", "poses.C", "landmarks.X", "observations.xy",
+              "intrinsics.params")
+
+
+def phase_f64(ds, matches, workdir, f32):
+    """(m) the float64 engines on (b)'s matches: ``run_triangulation(
+    f64=True)`` with incremental2 + MaxPair and with the global engine,
+    unprofiled, each held to (g)'s gates and artifact checks, float64 in
+    scene.npz's poses, points, observations and intrinsics (the
+    reference's f64 writer; colors float32), and two f64 ``bundle_adjust``
+    calls on the final scene bit-identical. One ``f64`` line beside the
+    f32 runs of (g) and (l) (``f32``: tag -> their summaries)."""
+    out = {}
+    for tag, params in (("incremental2", {}),
+                        ("global", dict(engine="global"))):
+        run_dir = os.path.join(workdir, f"sfm_f64_{tag}")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        stats = run_sfm(ds, matches, run_dir, f64=True, **params)
+        elapsed = time.time() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        scene, ate = check_sfm(ds, run_dir, stats,
+                               f"(m) f64 {tag} {elapsed:.1f} s:")
+        with np.load(os.path.join(run_dir, "scene.npz")) as z:
+            dtypes = {k: str(z[k].dtype) for k in z.files}
+        check(all(dtypes[k] == "float64" for k in F64_FIELDS)
+              and dtypes["landmarks.color"] == "float32",
+              f"(m) f64 {tag}: scene.npz dtypes {dtypes}")
+        ba = _bit_identical_ba(scene)
+        check(ba["dtype"] == "torch.float64", f"(m) f64 {tag}: BA in "
+              f"{ba['dtype']}")
+        ref = f32[tag]
+        out[tag] = {
+            "f64": {"cameras": stats["num_cameras"],
+                    "tracks": stats["num_tracks"], "ate": ate,
+                    "residual_median_px": stats["residual_median"],
+                    "rms_px": stats["rms_px"],
+                    "final_cost": final_cost(scene), "seconds": elapsed,
+                    "peak_device_gb": peak_gb, "ba_repeat": ba},
+            "f32": {"ate": ref["ate"],
+                    "residual_median_px": ref["residual_median_px"],
+                    "rms_px": ref["rms_px"],
+                    "final_cost": ref["final_cost"],
+                    "seconds_profiled": ref["elapsed_profiled_s"],
+                    "peak_device_gb": ref["peak_device_gb"]}}
+    log(json.dumps({"f64": out}))
 
 
 # (k)'s render: ``make_city`` in a process of its own, started first, so
@@ -1475,10 +1755,19 @@ def run_phases(ds, work, render, scale_wd, stamp):
     stamp("(e)")
     paths["profile"] = phase_matcher_profile(descs.data, descs.mask, parr)
     stamp("(f)")
-    phase_sfm(ds, out, work)
+    g = phase_sfm(ds, out, work)
     stamp("(g)")
-    phase_engines(ds, out, work)
+    engines = phase_engines(ds, out, work)
     stamp("(l)")
+    paths["detectors"] = phase_detectors(ds, work)
+    phase_f64(ds, out, work, {
+        "incremental2": dict(ate=g["ate"],
+                             residual_median_px=g["residual_px"]["median"],
+                             **{k: g[k] for k in (
+                                 "rms_px", "final_cost",
+                                 "elapsed_profiled_s", "peak_device_gb")}),
+        "global": engines["global"]})
+    stamp("(m)")
     phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
     stamp("(i)")
     k1_scale, scale_matches = phase_scale(render, scale_wd)
@@ -1489,6 +1778,7 @@ def run_phases(ds, work, render, scale_wd, stamp):
     k1_f32 = next(r for r in rows if r["name"] == "l2_top2_block_f32")
     k1_f32["launches_cli"] = k1_cli       # (j)'s matches
     k1_f32["launches_scale"] = k1_scale   # (k)'s matches
+    k1_f32["launches_detectors"] = paths["detectors"]     # (m)'s matches
     k1_f32["scale"] = {k: scale_row[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "shape", "tflops")}

@@ -9,9 +9,8 @@ surface) raise with no card unless ``--device cpu`` is given, and
 ``torch.profiler`` Chrome trace (``DIR/trace.json``): on a card, its
 kernels, copies and launch calls, as a JAX trace holds the device's work
 and the runtime's dispatch (on the CPU, the operators). Not ported yet, each
-raising ``NotImplementedError`` naming its ROADMAP §1 item: ``launch`` and
-multi-process runs (11), ``--f64`` (9), ``--dist-ba`` (11), detectors other
-than akaze / fast-akaze (12).
+raising ``NotImplementedError`` naming its ROADMAP §1 item: ``launch``,
+multi-process runs and ``--dist-ba`` (11).
 
 Maps the reference's GUI workflow (``Regard3DMainFrame`` orchestration
 methods: addComputeMatches / triangulate / createDensePointcloud /
@@ -137,21 +136,10 @@ def cmd_delete(args):
     print(f"deleted {kind} [{args.id}] and its subtree")
 
 
-def _check_detector(name):
-    from regard3d_tpu_torch.pipeline import features as fm
-    try:
-        fm.canonical_detector(name)
-    except ValueError:
-        raise NotImplementedError(
-            f"detector {name!r}: only akaze and fast-akaze are ported; the "
-            "others wait for a later slice (ROADMAP §1 item 12)") from None
-
-
 def cmd_matches(args):
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline.features import SENSITIVITY_PRESETS
     from regard3d_tpu_torch.pipeline.project import Project
-    _check_detector(args.detector)
     p = Project.load(args.project)
     ps, infos, images = _load_pictureset(p)
     obj = p.add_compute_matches(ps.id, _params(args))

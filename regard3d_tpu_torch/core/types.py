@@ -232,34 +232,37 @@ def scene_from_numpy(flat, device="cpu") -> Scene:
 
 
 def sfm_inputs_from_numpy(xy, track_id, view_id, feature_id, num_tracks,
-                          intr_id, intr, models, image_sizes, device="cpu"):
-    """Port ``sfm.incremental.SfMInputs`` from the reference's arrays."""
+                          intr_id, intr, models, image_sizes, device="cpu",
+                          dtype=torch.float32):
+    """Port ``sfm.incremental.SfMInputs`` from the reference's arrays, the
+    coordinates and intrinsics in ``dtype`` (float64: the f64 engines)."""
     from regard3d_tpu_torch.sfm.incremental import SfMInputs
     t = lambda a, dt: _from_numpy(a, dt, device)
-    return SfMInputs(xy=t(xy, torch.float32),
+    return SfMInputs(xy=t(xy, dtype),
                      track_id=t(track_id, torch.int64),
                      view_id=t(view_id, torch.int64),
                      feature_id=t(feature_id, torch.int64),
                      num_tracks=int(num_tracks),
                      intr_id=t(intr_id, torch.int64),
-                     intr=t(intr, torch.float32),
+                     intr=t(intr, dtype),
                      models=t(models, torch.int64),
                      image_sizes=np.array(image_sizes))
 
 
-def ba_state_from_numpy(R, C, intr, X, device="cpu"):
-    """Port ``ba.lm.BAState`` from the reference's arrays."""
+def ba_state_from_numpy(R, C, intr, X, device="cpu", dtype=torch.float32):
+    """Port ``ba.lm.BAState`` from the reference's arrays, in ``dtype``."""
     from regard3d_tpu_torch.ba.lm import BAState
-    f = lambda a: _from_numpy(a, torch.float32, device)
+    f = lambda a: _from_numpy(a, dtype, device)
     return BAState(R=f(R), C=f(C), intr=f(intr), X=f(X))
 
 
 def ba_observations_from_numpy(view_id, intr_id, point_id, model, xy, weight,
-                               device="cpu"):
-    """Port ``ba.lm.BAObservations`` from the reference's arrays."""
+                               device="cpu", dtype=torch.float32):
+    """Port ``ba.lm.BAObservations`` from the reference's arrays, the
+    coordinates and weights in ``dtype``."""
     from regard3d_tpu_torch.ba.lm import BAObservations
     i = lambda a: _from_numpy(a, torch.int64, device)
-    f = lambda a: _from_numpy(a, torch.float32, device)
+    f = lambda a: _from_numpy(a, dtype, device)
     return BAObservations(view_id=i(view_id), intr_id=i(intr_id),
                           point_id=i(point_id), model=i(model), xy=f(xy),
                           weight=f(weight))

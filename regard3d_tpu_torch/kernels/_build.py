@@ -5,6 +5,7 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go
 to :func:`runtime.kernel_build_dir` under a name that carries a hash of the
 source and the flags, so an edited source is rebuilt and concurrent builders
 never read a half-written file (write to a temporary name, then rename).
+``compile_library`` does the same for any compiler (``native.py``'s g++).
 """
 
 from __future__ import annotations
@@ -38,31 +39,48 @@ def nvcc_path() -> str:
     return found
 
 
-def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
-    stem = os.path.splitext(source)[0]
+def library_path(src: str, flags) -> str:
+    """Where the library of source file ``src`` built with ``flags`` goes:
+    its name hashes both."""
+    with open(src, "rb") as f:
+        h = hashlib.sha1(f.read() + " ".join(flags).encode())
+    stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(runtime.kernel_build_dir(),
                         f"lib{stem}_{h.hexdigest()[:12]}.so")
 
 
-def build(source: str) -> str:
-    """Compile ``csrc/<source>`` unless its library exists; returns the
-    library's path. Raises with nvcc's output if the build fails."""
-    out = _lib_path(source)
+def compile_library(compiler: str, flags, src: str) -> str:
+    """Compile ``src`` with ``compiler`` and ``flags`` into a shared library
+    unless it exists; returns its path. Raises with the compiler's output
+    if the build fails."""
+    out = library_path(src, flags)
     if os.path.exists(out):
         return out
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
     os.close(fd)
-    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                        os.path.join(CSRC, source)],
+    r = subprocess.run([compiler, *flags, "-o", tmp, src],
                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                        text=True)
     if r.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {source}:\n{r.stdout}")
+        raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n"
+                           f"{r.stdout}")
     os.replace(tmp, out)
     return out
+
+
+def _lib_path(source: str) -> str:
+    return library_path(os.path.join(CSRC, source), NVCC_FLAGS)
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` with nvcc unless its library exists;
+    returns the library's path."""
+    out = _lib_path(source)
+    if os.path.exists(out):         # built: no toolkit needed to load it
+        return out
+    return compile_library(nvcc_path(), NVCC_FLAGS,
+                           os.path.join(CSRC, source))
 
 
 def hmma_counts(lib_path: str) -> Dict[str, int]:

@@ -1,8 +1,11 @@
-"""Feature-extraction stage driver (AKAZE / Fast-AKAZE + LIOP).
+"""Feature-extraction stage driver: the detector menu + LIOP.
 
-Counterpart of ``regard3d_tpu/pipeline/features.py`` for the two shipped
-detectors: images are bucketed by padded shape and each bucket runs
-detection + description as one batched call on the stage's device.
+Counterpart of ``regard3d_tpu/pipeline/features.py``: images are bucketed
+by padded shape and each bucket runs detection + description as one
+batched call on the stage's device. The device detectors (AKAZE,
+Fast-AKAZE, GFTT, ORB, BRISK) detect on the device; the host detectors
+(MSER, TBMR) run the native component-tree library image by image and
+their keypoints are described on the device with the same LIOP call.
 
 Artifact contract per image (byte-compatible with the reference, both ways):
 * ``imageXXXXXX.feat`` — text, one keypoint per line: ``x y scale
@@ -20,10 +23,10 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import native, runtime
 from regard3d_tpu_torch.core.types import Descriptors, Keypoints
 from regard3d_tpu_torch.ingest import image_io
-from regard3d_tpu_torch.kernels import detect, liop
+from regard3d_tpu_torch.kernels import corners, detect, liop
 from regard3d_tpu_torch.kernels.scale_space import ScaleSpaceConfig
 
 LIOP_DIM = liop.LIOP_DIM
@@ -33,25 +36,95 @@ SENSITIVITY_PRESETS = {
     "minimal": 0.001, "normal": 0.0007, "high": 0.0005, "ultra": 0.0001,
 }
 
-DETECTORS = ("akaze", "fast-akaze")
+# Detector menu (Regard3DFeatures::detectKeypoints dispatch,
+# src/Regard3DFeatures.cpp:574-683). "akaze"/"fast-akaze" are the shipped
+# GUI entries; the rest are the experimental paths behind the same dispatch.
+DEVICE_DETECTORS = ("akaze", "fast-akaze", "gftt", "orb", "brisk")
+HOST_DETECTORS = ("mser", "tbmr")
+DETECTORS = DEVICE_DETECTORS + HOST_DETECTORS
+
 _DETECTOR_ALIASES = {
     "classic-a-kaze": "akaze", "classic-akaze": "akaze",
     "fast-a-kaze": "fast-akaze", "fastakaze": "fast-akaze",
 }
-_FACTOR_KEYS = {"akaze": "AKAZE", "fast-akaze": "Fast-AKAZE"}
+# kpSizeFactor table keys (src/Regard3DFeatures.cpp:691-717)
+_FACTOR_KEYS = {"akaze": "AKAZE", "fast-akaze": "Fast-AKAZE", "mser": "MSER",
+                "orb": "ORB", "brisk": "BRISK", "gftt": "GFTT",
+                "tbmr": "TBMR"}
 
 
 def canonical_detector(name: str) -> str:
     n = name.strip().lower().replace("_", "-").replace(" ", "-")
     n = _DETECTOR_ALIASES.get(n, n)
     if n not in DETECTORS:
-        raise ValueError(f"unknown or not yet ported detector {name!r}; "
-                         f"choose from {DETECTORS}")
+        raise ValueError(f"unknown detector {name!r}; choose from {DETECTORS}")
     return n
 
 
 def detector_kp_size_factor(detector: str) -> float:
     return liop.KP_SIZE_FACTORS[_FACTOR_KEYS[canonical_detector(detector)]]
+
+
+def _detect_host(img: np.ndarray, detector: str,
+                 max_keypoints: int) -> Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray, np.ndarray]:
+    """MSER / TBMR via the native component-tree library. img: (H, W) float
+    in [0, 1]. Returns (xy, size, angle, score) numpy arrays, at most
+    ``max_keypoints`` rows (the highest scores: region areas)."""
+    g8 = (np.clip(img, 0.0, 1.0) * 255.0).astype(np.uint8)
+    if detector == "mser":
+        rows = native.mser(g8)
+        xy = rows[:, :2]
+        size = rows[:, 2]
+        angle = np.full(len(rows), corners.CV_UNDEFINED_ANGLE, np.float32)
+        score = rows[:, 3]
+    else:  # tbmr
+        rows = native.tbmr(g8)
+        xy = rows[:, :2]
+        # keypoint size = sqrt(l1^2 + l2^2) (src/Regard3DFeatures.cpp:633-637)
+        size = np.sqrt(rows[:, 2] ** 2 + rows[:, 3] ** 2)
+        angle = rows[:, 4] - np.pi / 2.0     # cv angle -> internal convention
+        score = rows[:, 5]
+    if len(xy) > max_keypoints:
+        order = np.argsort(-score)[:max_keypoints]
+        xy, size, angle, score = xy[order], size[order], angle[order], \
+            score[order]
+    return (xy.astype(np.float32), size.astype(np.float32),
+            angle.astype(np.float32), score.astype(np.float32))
+
+
+def _detect_device(data, widths, heights, detector: str,
+                   cfg: ScaleSpaceConfig, max_keypoints: int) -> Keypoints:
+    if detector in ("akaze", "fast-akaze"):
+        # both GUI entries share the scale-space detector (only the
+        # threshold differs in the reference)
+        return detect.detect_akaze(data, widths, heights, cfg, max_keypoints)
+    fn = {"gftt": corners.detect_gftt, "orb": corners.detect_orb,
+          "brisk": corners.detect_brisk}[detector]
+    return fn(data, widths, heights, max_keypoints)
+
+
+def _detect_host_bucket(b, detector: str, max_keypoints: int,
+                        dev) -> Keypoints:
+    """Host detection over a bucket's images into padded keypoints on
+    ``dev`` (capacity ``max_keypoints``)."""
+    B, K = b.data.shape[0], max_keypoints
+    xy = np.zeros((B, K, 2), np.float32)
+    size = np.zeros((B, K), np.float32)
+    angle = np.zeros((B, K), np.float32)
+    mask = np.zeros((B, K), bool)
+    for bi in range(B):
+        w, h = b.true_sizes[bi]
+        p, s, a, _ = _detect_host(b.data[bi, :h, :w], detector, K)
+        n = len(p)
+        xy[bi, :n] = p
+        size[bi, :n] = s
+        angle[bi, :n] = a
+        mask[bi, :n] = True
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return Keypoints(xy=t(xy), scale=t(size), angle=t(angle),
+                     score=torch.zeros((B, K), dtype=torch.float32,
+                                       device=dev), mask=t(mask))
 
 
 def feat_path(out_dir: str, index: int) -> str:
@@ -76,8 +149,10 @@ def save_features(out_dir: str, index: int, xy: np.ndarray, scale: np.ndarray,
 
 def load_features(out_dir: str, index: int) -> Tuple[np.ndarray, np.ndarray,
                                                      np.ndarray, np.ndarray]:
-    """Returns (xy (N,2), scale (N,), angle (N,), desc (N,144))."""
-    feats = np.loadtxt(feat_path(out_dir, index), ndmin=2, dtype=np.float32)
+    """Returns (xy (N,2), scale (N,), angle (N,), desc (N,144)); the
+    ``.feat`` text goes through the native parser (``np.loadtxt`` gives the
+    same rows)."""
+    feats = native.parse_feats(feat_path(out_dir, index))
     if feats.size == 0:
         feats = np.zeros((0, 4), np.float32)
     with open(desc_path(out_dir, index), "rb") as f:
@@ -129,11 +204,12 @@ def extract_features(images: Sequence[np.ndarray], out_dir: str,
               if todo else []):
         with torch.no_grad():
             data = torch.as_tensor(b.data, dtype=torch.float32, device=dev)
-            sizes = torch.as_tensor(b.true_sizes, device=dev)
-            # both GUI entries share the scale-space detector (only the
-            # threshold differs in the reference)
-            kps = detect.detect_akaze(data, sizes[:, 0], sizes[:, 1], cfg,
-                                      max_keypoints)
+            if detector in HOST_DETECTORS:
+                kps = _detect_host_bucket(b, detector, max_keypoints, dev)
+            else:
+                sizes = torch.as_tensor(b.true_sizes, device=dev)
+                kps = _detect_device(data, sizes[:, 0], sizes[:, 1],
+                                     detector, cfg, max_keypoints)
             descs = liop.describe_liop(data, kps, kp_size_factor)
         m_all = kps.mask.cpu().numpy()
         xy = kps.xy.cpu().numpy()

@@ -10,8 +10,10 @@ matches, with its averaging menus) -> artifacts: ``scene.npz`` (the
 reference's residual statistics.
 
 Runs on ``device`` (default cuda; raises with no card unless the CPU is
-asked for). Waiting for later slices, each raising ``NotImplementedError``
-naming its ROADMAP §1 item: float64 engines and the sharded BA polish.
+asked for). ``f64=True`` runs the float64 engines: the inputs, the engine
+state, triangulation and BA in float64, the minimal-solver sweeps in
+float32 as in the reference. Waiting for a later slice, raising
+``NotImplementedError`` naming its ROADMAP §1 item: the sharded BA polish.
 """
 
 from __future__ import annotations
@@ -62,7 +64,9 @@ def build_sfm_inputs(matches_dir: str, num_images: int,
                      models: np.ndarray, image_sizes: np.ndarray,
                      matches_kind: str = "f", dtype=np.float32,
                      device="cpu"):
-    """Features + match files -> tracks -> SfMInputs on ``device``."""
+    """Features + match files -> tracks -> SfMInputs on ``device``, the
+    coordinates and intrinsics in ``dtype`` (float32, or float64 for the
+    f64 engines)."""
     matches = cm.load_matches_txt(
         os.path.join(matches_dir, f"matches.{matches_kind}.txt"))
     table = tracks_mod.build_tracks(matches)
@@ -77,13 +81,13 @@ def build_sfm_inputs(matches_dir: str, num_images: int,
             xy[rows] = feat_mod.load_features(matches_dir, v)[0][fid[rows]]
     t = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
     return incremental.SfMInputs(
-        xy=t(xy, torch.float32),
+        xy=t(xy, None),                  # None keeps numpy's ``dtype``
         track_id=t(table.track_id, torch.int64),
         view_id=t(table.view_id, torch.int64),
         feature_id=t(table.feature_id, torch.int64),
         num_tracks=table.num_tracks,
         intr_id=t(intr_id, torch.int64),
-        intr=t(np.asarray(intr, dtype), torch.float32),
+        intr=t(np.asarray(intr, dtype), None),
         models=t(models, torch.int64),
         image_sizes=image_sizes,
     ), table
@@ -163,10 +167,6 @@ def check_params(params: TriangulationParams):
         raise NotImplementedError(
             "dist_ba=True (sharded BA) waits for a later slice (ROADMAP §1 "
             "item 11)")
-    if params.f64:
-        raise NotImplementedError(
-            "f64=True (float64 engines) waits for a later slice "
-            "(ROADMAP §1 item 9)")
 
 
 def run_triangulation(matches_dir: str, out_dir: str,
@@ -191,8 +191,10 @@ def run_triangulation(matches_dir: str, out_dir: str,
     image_sizes = np.asarray([[im.shape[1], im.shape[0]] for im in images])
 
     kind = "e" if params.engine == "global" else params.matches_kind
+    dtype = np.float64 if params.f64 else np.float32
     inputs, table = build_sfm_inputs(matches_dir, len(images), intr_id, intr,
-                                     models, image_sizes, kind, device=dev)
+                                     models, image_sizes, kind, dtype=dtype,
+                                     device=dev)
     if params.engine == "global":
         result = global_sfm.run_global(
             inputs, global_sfm.GlobalConfig(

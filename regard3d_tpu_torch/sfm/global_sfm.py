@@ -74,11 +74,11 @@ class RelativeMotion(NamedTuple):
     obs_j: np.ndarray
 
 
-def _edge_tensors(motions, dev):
+def _edge_tensors(motions, dev, dtype=torch.float32):
     idx_i = torch.as_tensor([m.i for m in motions], device=dev)
     idx_j = torch.as_tensor([m.j for m in motions], device=dev)
     w = torch.as_tensor([float(m.num_inliers) for m in motions],
-                        dtype=torch.float32, device=dev)
+                        dtype=dtype, device=dev)
     return idx_i, idx_j, w
 
 
@@ -93,13 +93,16 @@ def _blocks(idx_a, idx_b, blocks, V):
 
 def average_rotations(motions: List[RelativeMotion], V: int,
                       loss: str = "l2", irls_iterations: int = 8,
-                      device=None) -> torch.Tensor:
+                      device=None, dtype=torch.float32) -> torch.Tensor:
     """Spectral rotation averaging (+ IRLS for l1). Returns (V, 3, 3)
-    float32 rotations on ``device`` in the gauge R[0] = I."""
+    rotations on ``device`` in the gauge R[0] = I, solved in ``dtype``
+    (float64 for the f64 engines: the relative rotations come from the
+    float32 minimal solvers and the weights and the eigensolver run in
+    float64, as in the reference under x64)."""
     dev = runtime.resolve_device(device)
-    idx_i, idx_j, w = _edge_tensors(motions, dev)
+    idx_i, idx_j, w = _edge_tensors(motions, dev, dtype)
     Rij = torch.as_tensor(np.stack([m.R_ij for m in motions]),
-                          dtype=torch.float32, device=dev)     # (P, 3, 3)
+                          dtype=torch.float32, device=dev).to(dtype)
     w = w / w.max()
 
     def solve(weights):
@@ -298,7 +301,7 @@ def _average_translations_spectral(motions: List[RelativeMotion],
     fallback when scale reconciliation is unavailable."""
     dev = runtime.resolve_device(device)
     R_global = torch.as_tensor(R_global, device=dev)
-    idx_i, idx_j, base_w = _edge_tensors(motions, dev)
+    idx_i, idx_j, base_w = _edge_tensors(motions, dev, R_global.dtype)
     dirs = torch.as_tensor(np.stack([m.dir_i for m in motions]),
                            dtype=R_global.dtype, device=dev)
     # world-frame direction of (C_j - C_i): d_w = R_i^T d_i
@@ -481,7 +484,7 @@ def run_global(inputs: inc.SfMInputs, cfg: GlobalConfig = GlobalConfig(),
 
     with record_function("triangulation.averaging"), torch.no_grad():
         R = average_rotations(motions, V, cfg.rotation_loss,
-                              cfg.irls_iterations, device=dev).to(dtype)
+                              cfg.irls_iterations, device=dev, dtype=dtype)
         # translation averaging returns centres of mean norm 1: the
         # absolute scale is a free gauge, kept as is
         C = average_translations(motions, R, V, cfg.translation_loss,

@@ -8,7 +8,10 @@ precision. The two packages sum their convolutions in different orders
 (XLA against oneDNN), so scale-space values agree to f32 rounding, not
 bitwise, and a keypoint may move by that rounding. The port's detector and descriptor are then held to the
 reference's own outputs under the gates the JAX package's golden tests use
-(``tests/test_akaze_golden.py``, ``tests/test_liop.py``).
+(``tests/test_akaze_golden.py``, ``tests/test_liop.py``). The detector menu
+(GFTT, ORB, BRISK on the device; MSER, TBMR through the native library)
+goes through both packages' ``extract_features`` on one fountain view at
+256 px, each test stating its gate.
 """
 
 import os
@@ -326,3 +329,88 @@ def test_image_io_matches_reference(tmp_path, rng):
         assert a.indices == b.indices
         np.testing.assert_array_equal(a.data, b.data)
         np.testing.assert_array_equal(a.true_sizes, b.true_sizes)
+
+
+# ---------------------------------------------------------------------------
+# the detector menu through the stage's feature driver
+# ---------------------------------------------------------------------------
+
+MENU = ("gftt", "orb", "brisk", "mser", "tbmr")
+
+
+@pytest.fixture(scope="module")
+def menu_image():
+    from regard3d_tpu_torch.ingest import synth
+    return synth.make_dataset("fountain", n_cams=2, hw=256, seed=0)[
+        "images"][0].astype(np.float32)
+
+
+def _liop_gate(a, b, frac=0.99, cos=0.99):
+    """The LIOP gate of ``test_describe_liop_on_reference_keypoints``:
+    >= ``frac`` within 1e-4 (L2), cosine > ``cos``; a flat patch's zero
+    descriptor must be zero in both."""
+    dist = np.linalg.norm(a - b, axis=1)
+    assert (dist <= 1e-4).mean() >= frac, np.sort(dist)[-5:]
+    live = np.linalg.norm(a, axis=1) > 0.5
+    np.testing.assert_array_equal(np.linalg.norm(b, axis=1) > 0.5, live)
+    assert np.sum(a * b, 1)[live].min() > cos
+
+
+@pytest.mark.parametrize("detector", MENU)
+def test_extract_features_detector_menu_matches_reference(
+        menu_image, detector, tmp_path):
+    """``extract_features(detector=...)`` in both packages on one view:
+    the host detectors (MSER, TBMR through the native library) write the
+    reference's .feat rows exactly; the device detectors (GFTT, ORB, BRISK)
+    hold >= 99% of the reference's keypoints at its rank within 1e-3 px
+    (``tools.keypoint_agreement.rank_agreement``). The descriptors of the
+    keypoints both hold pass the LIOP gate; for the corner detectors at
+    >= 97% within 1e-4 and cosine > 0.9999: their patches are small (GFTT
+    3 px x 0.13, ORB 31 px x 0.025 at level 0) and bilinear samples of a
+    sub-pixel neighbourhood tie often, so f32 rounding moves more pixels
+    across an ordinal bin than at AKAZE's scales (measured on this view:
+    97.9% GFTT, 97.8% ORB, 99.7% BRISK within 1e-4)."""
+    from regard3d_tpu.pipeline import features as jf
+    from regard3d_tpu_torch.pipeline import features as tf
+    from regard3d_tpu_torch.tools.keypoint_agreement import rank_agreement
+    ref, port = str(tmp_path / "ref"), str(tmp_path / "port")
+    nj = jf.extract_features([menu_image], ref, detector=detector,
+                             max_keypoints=512)
+    nt = tf.extract_features([menu_image], port, detector=detector,
+                             max_keypoints=512, device="cpu")
+    assert nt == nj and nt[0] > 0
+    pj, sj, aj, dj = jf.load_features(ref, 0)
+    pt, st, at, dt = tf.load_features(port, 0)
+    if detector in tf.HOST_DETECTORS:
+        np.testing.assert_array_equal(pt, pj)
+        np.testing.assert_array_equal(st, sj)
+        np.testing.assert_array_equal(at, aj)
+        _liop_gate(dj, dt)
+    else:
+        rank = -np.arange(len(pj), dtype=np.float32)    # distinct ranks
+        live = np.ones(len(pj), bool)
+        in_rank, _ = rank_agreement((pj, sj, rank, live),
+                                    (pt, st, rank, live))
+        assert in_rank >= 0.99, in_rank
+        same = np.abs(pj - pt).max(1) <= 1e-3
+        _liop_gate(dj[same], dt[same], frac=0.97, cos=0.9999)
+    with open(tf.feat_path(port, 0), "rb") as f:
+        assert f.read().count(b"\n") == nt[0]
+    # the native parser reads what np.loadtxt reads
+    np.testing.assert_array_equal(
+        np.loadtxt(tf.feat_path(port, 0), ndmin=2, dtype=np.float32)[:, :2],
+        pt)
+
+
+def test_detector_menu_names_match_reference():
+    from regard3d_tpu.pipeline import features as jf
+    from regard3d_tpu_torch.pipeline import features as tf
+    assert tf.DETECTORS == jf.DETECTORS
+    assert tf.HOST_DETECTORS == jf.HOST_DETECTORS
+    for name in ("Classic A-KAZE", "Fast A-KAZE", "ORB", "gftt", "MSER",
+                 "tbmr", "brisk", "fast_akaze"):
+        assert tf.canonical_detector(name) == jf.canonical_detector(name)
+        assert tf.detector_kp_size_factor(name) == \
+            jf.detector_kp_size_factor(name)
+    with pytest.raises(ValueError):
+        tf.canonical_detector("sift")

@@ -294,10 +294,11 @@ def test_run_incremental_stellar_matches_reference():
 
 
 def test_unported_options_raise():
-    """float64 and the sharded BA still raise, naming their ROADMAP items;
-    stellar is ignored with a user's initial pair, as in the reference."""
-    for kw, item in ((dict(dist_ba=True), 11), (dict(f64=True), 9),
-                     (dict(engine="global", f64=True), 9)):
+    """The sharded BA still raises, naming its ROADMAP item; float64 and
+    stellar with a user's initial pair pass the check (stellar is ignored
+    there, as in the reference)."""
+    for kw, item in ((dict(dist_ba=True), 11),
+                     (dict(dist_ba=True, f64=True), 11)):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP §1 item {item}"):
             tts.run_triangulation("/nonexistent", "/nonexistent", [],
@@ -306,5 +307,6 @@ def test_unported_options_raise():
                                   device="cpu")
     for kw in (dict(engine="incremental", initial_pair=(0, 1),
                     initializer="stellar", use_gps=True),
-               dict(engine="global"), dict(initializer="stellar")):
+               dict(engine="global"), dict(initializer="stellar"),
+               dict(f64=True), dict(engine="global", f64=True)):
         tts.check_params(tts.TriangulationParams(**kw))

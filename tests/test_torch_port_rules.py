@@ -119,6 +119,9 @@ def test_port_modules_load_without_jax():
             "regard3d_tpu_torch.export.sfm_output",
             "regard3d_tpu_torch.export.external_mvs",
             "regard3d_tpu_torch.tools.photos"} <= set(port_modules())
+    # the detector menu and the port's binding to the host library
+    assert {"regard3d_tpu_torch.kernels.corners",
+            "regard3d_tpu_torch.native"} <= set(port_modules())
     # the engine menu and the scale axis
     assert {"regard3d_tpu_torch.sfm.global_sfm",
             "regard3d_tpu_torch.tools.scale",

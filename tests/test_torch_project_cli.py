@@ -23,6 +23,8 @@ and textures) -> preview -> info. Checked:
   same parameters (``_params`` drops ``--device``);
 * ``sfm --engine global`` and ``sfm --initializer stellar`` run on the
   quick-start project and store the reference CLI's parameters;
+* ``sfm --f64`` and ``matches --detector orb|mser`` run on the quick-start
+  project and store the reference CLI's parameters;
 * the unported options raise ``NotImplementedError`` naming their ROADMAP
   item; ``retrieval_pairs`` gives the reference's pair list.
 """
@@ -262,11 +264,9 @@ def test_subcommands_options_and_stored_params_match_reference(argv):
 
 @pytest.mark.parametrize("argv,item", [
     (["launch", "-n", "2", "--", "info", "p"], 11),
-    (["sfm", "{p}", "--f64"], 9),
     (["sfm", "{p}", "--dist-ba"], 11),
-    (["matches", "{p}", "--detector", "orb"], 12),
     (["info", "{p}"], 11),
-], ids=["launch", "f64", "dist_ba", "detector", "multiprocess"])
+], ids=["launch", "dist_ba", "multiprocess"])
 def test_unported_options_raise_naming_their_item(qs, argv, item,
                                                   monkeypatch):
     if item == 11 and argv[0] == "info":
@@ -304,6 +304,42 @@ def test_engine_menu_through_the_cli(qs, tmp_path, argv):
     pm = scene.poses.mask.numpy()
     assert pm.all()
     assert jmet.ate_rmse(scene.poses.C.numpy(), qs["ds"]["Cs"]) <= 0.08
+
+
+@pytest.mark.parametrize("argv", [
+    ["sfm", "--id", "1", "--f64"],
+    ["matches", *MATCH_ARGS, "--detector", "orb"],
+    ["matches", *MATCH_ARGS, "--detector", "mser"],
+], ids=["sfm_f64", "matches_orb", "matches_mser"])
+def test_f64_and_detector_menu_through_the_cli(qs, tmp_path, argv):
+    """``sfm --f64`` and ``matches --detector orb|mser`` on a copy of the
+    quick-start project: the step finishes and project.json stores what the
+    reference CLI stores for the same command (the reference's Project
+    loads it). The f64 run poses every camera within 0.08 of the truth
+    after Sim3 with float64 state in scene.npz; the matches steps write
+    every view's features and putative matches (at 192 px the corner
+    detectors' small LIOP patches F-validate few pairs or none, in the
+    reference as in the port)."""
+    proj = str(tmp_path / "proj")
+    shutil.copytree(qs["proj"], proj)
+    full = [argv[0], proj, *argv[1:]]
+    stats = json.loads(port(*full))
+    p = TProject.load(proj)
+    obj = p.objects[max(p.objects)]
+    assert obj.state == "finished"
+    assert obj.params == jcli._params(jcli.build_parser().parse_args(full))
+    jobj = JProject.load(proj).objects[obj.id]
+    assert (jobj.kind, jobj.state, jobj.params) == (obj.kind, obj.state,
+                                                    obj.params)
+    if argv[0] == "sfm":
+        assert stats["num_cameras"] == N_VIEWS
+        scene = load_npz(os.path.join(p.paths(obj.id).triangulation_dir,
+                                      "scene.npz"))
+        assert scene.poses.C.dtype == scene.landmarks.X.dtype == torch.float64
+        assert jmet.ate_rmse(scene.poses.C.numpy(), qs["ds"]["Cs"]) <= 0.08
+    else:
+        assert obj.kind == "matches" and obj.params["detector"] == argv[-1]
+        assert min(stats["keypoints"]) > 0 and stats["matches_putative"] > 0
 
 
 def test_cli_runs_as_a_module_from_any_directory(qs, tmp_path):
