@@ -60,10 +60,10 @@ run if it fails:
     ``sfm`` JSON line;
 (l) the engine menu on phase (b)'s matches at full width:
     ``run_triangulation`` with the global engine (on ``matches.e.txt``) and
-    with the stellar initializer, each under the profiler and held to (g)'s
-    gates and artifact checks; per engine span (``triangulation.<phase>``)
-    the host time, device busy time, idle share and operations, the
-    stellar run's pod size; one ``engines`` JSON line;
+    with the stellar initializer, each on the host clock (no profiler: (g)
+    holds the profiled span breakdown) and held to (g)'s gates and artifact
+    checks and to having allocated on the card; the engine's own phase
+    times, the stellar run's pod size; one ``engines`` JSON line;
 (m) the detector menu and the float64 engines at full width: phase (b)'s
     stage with each of GFTT, ORB, BRISK (corners on the card), MSER and
     TBMR (the port's native binding to ``native/r3d_native.cpp``, built by
@@ -139,10 +139,31 @@ run if it fails:
     with each command's wall time (process start included),
     ``running_time_s`` and the grid of the cloud handed to ``reconstruct``
     (bounding box, cell, occupied cells, faces after the trim);
+(n) distribution, right after (g), with two of everything on the one card
+    (gloo between processes): ``python -m regard3d_tpu_torch.cli launch -n
+    2 -- matches <(j)'s project>`` (every ``.feat``, ``.desc`` and
+    ``matches.*.txt`` the bytes of (j)'s one-process ``matches``), then
+    ``launch -n 2 -- sfm <(j)'s project> --dist-ba`` on them (exit 0, one
+    new step each, ``finished``, 11/11 cameras, ATE <= 0.08 after Sim3,
+    median < 1 px), in the background while this process runs
+    ``bundle_adjust_point_sharded`` over ``[cuda:0, cuda:0]`` on (g)'s
+    final problem (cost within 1e-4 of (g)'s
+    ``bundle_adjust``, a repeat bit-identical), ``run_triangulation(
+    dist_ba=True)`` on (b)'s matches at (g)'s gates and
+    ``compute_depth_maps_sharded`` over ``[cuda:0, cuda:0]`` at level 2
+    against ``compute_depth_maps`` (plane flips on <= 1% of the valid
+    pixels); then ``dist.launch.launch_local(2, ..., module=None)`` runs
+    this file's rank program: ``run_compute_matches(proc_id, proc_count=2)``
+    at (b)'s settings (every ``.feat``, ``.desc`` and ``matches.*.txt`` the
+    bytes of (b)'s, K1 f32 launched in each rank), then
+    ``bundle_adjust_sharded`` over the ranks' gloo group on (g)'s problem
+    (the same state in both ranks, cost within 1e-4 of (g)'s). No rank
+    rebuilds a kernel. One ``dist`` JSON line with the ranks' layout;
 (d) print the ``kernels`` JSON line (launches from the run of the path each
     kernel lies on: (b), its flann run, or (f), and K1's launches in (j)'s
     ``matches`` as ``launches_cli``, in (m)'s runs as
-    ``launches_detectors``, in (k)'s run as ``launches_scale``
+    ``launches_detectors``, in (n)'s two ranks as ``launches_ranks``, in
+    (k)'s run as ``launches_scale``
     with the timings at (k)'s shape under ``scale``; (g), (h), (i), (l)
     and (m)'s f64 runs launch no kernel of their own), then the card's
     name and power limit, and the final ``{"ok": true, ...}`` line.
@@ -155,8 +176,11 @@ from __future__ import annotations
 import bisect
 import collections
 import concurrent.futures
+import dataclasses
 import json
 import os
+import shlex
+import signal
 import subprocess
 import sys
 import tempfile
@@ -175,7 +199,6 @@ PROFILE_VIEWS = 4                # (e): the profiled stage's views
 ACCURACY_ITERS = 512             # (h): RANSAC iterations
 PHASES = ("features", "matching", "filter")
 SFM_PHASES = ("init", "resection", "triangulation", "ba", "outlier")
-GLOBAL_PHASES = ("motions", "averaging", "triangulation", "ba", "outlier")
 SCALE_VIEWS = 200                # (k): SCALE200.json's corridor
 ATE_BOUND = 0.08                 # bench_accuracy.GATES
 
@@ -753,7 +776,7 @@ def phase_profile(ds, workdir):
                     "views": PROFILE_VIEWS}))
 
 
-def run_sfm(ds, matches, out, **params):
+def run_sfm(ds, matches, out, device=None, **params):
     """The triangulation stage at the smoke's shapes; ``params`` of
     ``TriangulationParams`` (none: the main path, incremental2 + MaxPair)."""
     from regard3d_tpu_torch.core.types import PINHOLE
@@ -764,7 +787,8 @@ def run_sfm(ds, matches, out, **params):
                                 intr_id=np.zeros(N_CAMS, np.int32),
                                 intr=intr,
                                 models=np.asarray([PINHOLE], np.int32),
-                                params=ts.TriangulationParams(**params))
+                                params=ts.TriangulationParams(**params),
+                                device=device)
 
 
 def check_sfm(ds, out, stats, tag):
@@ -926,44 +950,44 @@ def phase_sfm(ds, matches, workdir):
     return summary
 
 
+def device_allocations() -> int:
+    """Blocks the caching allocator has handed out on the card so far: it
+    grows with every device operation that makes a tensor."""
+    return torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+
+
 def phase_engines(ds, matches, workdir):
     """(l) the engine menu on phase (b)'s matches at full width: the global
     engine (``matches.e.txt``) and the stellar initializer, each through
-    ``run_triangulation`` under the profiler, each held to (g)'s gates and
-    artifact checks, with its per-span profile; one ``engines`` line."""
-    from torch.profiler import ProfilerActivity, profile
+    ``run_triangulation`` on the host clock (unprofiled: (g) holds the
+    profiled breakdown of the engine spans), each held to (g)'s gates and
+    artifact checks and to having run on the card (device allocations),
+    with the engine's own phase times; one ``engines`` line."""
     out = {}
-    for tag, params, phases in (
-            ("global", dict(engine="global"), GLOBAL_PHASES),
-            ("stellar", dict(initializer="stellar"), SFM_PHASES)):
+    for tag, params in (("global", dict(engine="global")),
+                        ("stellar", dict(initializer="stellar"))):
         run_dir = os.path.join(workdir, f"sfm_{tag}")
+        torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        allocs = device_allocations()
         t0 = time.time()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            stats = run_sfm(ds, matches, run_dir, **params)
+        stats = run_sfm(ds, matches, run_dir, **params)
+        torch.cuda.synchronize()
         elapsed = time.time() - t0
+        allocs = device_allocations() - allocs
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         scene, ate = check_sfm(ds, run_dir, stats,
                                f"(l) {tag} {elapsed:.1f} s:")
-        rows = span_table(prof.profiler.kineto_results.events(),
-                          ["triangulation." + ph for ph in phases])
-        for r in rows:
-            r["phase"] = r.pop("span")[len("triangulation."):]
-            log(f"(l) {tag} {r['phase']}: {r['spans']} spans, host "
-                f"{r['host_s']:.3f} s, device busy {r['device_busy_s']:.3f} "
-                f"s, {r['device_ops']} device ops")
-        check(sum(r["device_ops"] for r in rows) > 0,
-              f"(l) {tag} ran nothing on the device")
+        check(allocs > 0, f"(l) {tag} ran nothing on the device")
         out[tag] = {
             "params": params, "cameras": stats["num_cameras"],
             "tracks": stats["num_tracks"],
             "observations": stats["num_observations"], "ate": ate,
             "rms_px": stats["rms_px"],
             "residual_median_px": stats["residual_median"],
-            "final_cost": final_cost(scene),
-            "elapsed_profiled_s": elapsed, "peak_device_gb": peak_gb,
-            "spans": rows,
+            "final_cost": final_cost(scene), "seconds": elapsed,
+            "profiled": False, "device_allocations": allocs,
+            "peak_device_gb": peak_gb,
             **{k: stats[k] for k in ("num_relative_motions", "init_hub",
                                      "stellar_pod_size", "init_pair",
                                      "profile") if k in stats}}
@@ -1190,7 +1214,7 @@ def phase_f64(ds, matches, workdir, f32):
                     "residual_median_px": ref["residual_median_px"],
                     "rms_px": ref["rms_px"],
                     "final_cost": ref["final_cost"],
-                    "seconds_profiled": ref["elapsed_profiled_s"],
+                    "seconds": ref["seconds"], "profiled": ref["profiled"],
                     "peak_device_gb": ref["peak_device_gb"]}}
     log(json.dumps({"f64": out}))
 
@@ -1718,6 +1742,299 @@ def phase_cli(ds, workdir, device="cuda", match_args=()):
     return k1
 
 
+# (n) distribution: a rank of the two-process stage + sharded BA, a program
+# of its own run by ``dist.launch.launch_local(module=None)``; argv: the
+# work directory (views.npy, ba.npz, the stage's settings in rank.json)
+RANK = r"""
+import hashlib, json, os, sys, time
+import numpy as np, torch
+from regard3d_tpu_torch.ba import lm, sharded
+from regard3d_tpu_torch.dist import launch
+from regard3d_tpu_torch.kernels import match as match_mod
+from regard3d_tpu_torch.pipeline import compute_matches as cm
+assert launch.init_from_env()
+rank = int(os.environ[launch.ENV_PID])
+work = sys.argv[1]
+with open(os.path.join(work, "rank.json")) as fh:
+    cfg = json.load(fh)
+images = list(np.load(os.path.join(work, "views.npy")))
+dev = torch.device(cfg["device"])
+match_mod.reset_launch_counts()
+t0 = time.time()
+cm.run_compute_matches(images, os.path.join(work, "matches"),
+                       cfg=cm.MatchConfig(), focals=np.asarray(cfg["focals"]),
+                       max_keypoints=cfg["max_kp"], proc_id=rank,
+                       proc_count=2, device=dev)
+stage_s = time.time() - t0
+z = np.load(os.path.join(work, "ba.npz"))
+state = lm.BAState(*(torch.as_tensor(z[k]) for k in ("R", "C", "intr", "X")))
+obs = lm.BAObservations(*(torch.as_tensor(z[k]) for k in (
+    "view_id", "intr_id", "point_id", "model", "xy", "weight")))
+t0 = time.time()
+out, st = sharded.bundle_adjust_sharded(
+    state, obs, None, lm.BAOptions(**cfg["ba_opts"]),
+    fixed_pose_mask=torch.as_tensor(z["fixed"]), device=dev)
+sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+sync()
+ba_s = time.time() - t0
+digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in out))
+# what one reduction costs between the ranks: the camera system of a CG
+# step, (V,6)+(K,9), and the obs-sharded path's (L,3) point sums
+reduce_ms = {}
+for n in (state.R.shape[0] * 6 + state.intr.shape[0] * 9,
+          state.X.shape[0] * 3):
+    buf = torch.zeros(n, device=dev)
+    torch.distributed.all_reduce(buf)
+    sync()
+    t1 = time.time()
+    for _ in range(100):
+        torch.distributed.all_reduce(buf)
+    sync()
+    reduce_ms[str(n)] = (time.time() - t1) * 10.0
+with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+    json.dump({"rank": rank, "device": str(out.X.device),
+               "backend": torch.distributed.get_backend(),
+               "launches": dict(match_mod.LAUNCHES), "stage_s": stage_s,
+               "ba_s": ba_s, "all_reduce_ms": reduce_ms, "ba": st._asdict(),
+               "state_sha256": digest.hexdigest()}, fh)
+"""
+
+
+def same_bytes(a, b) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def phase_dist(ds, matches, workdir, g, device="cuda"):
+    """(n) distribution on the card, one card shared by two of everything:
+    ``r3d launch -n 2 -- matches`` and ``-- sfm --dist-ba`` on (j)'s
+    project in the background while this process runs the point-sharded
+    BA over ``[cuda:0, cuda:0]`` on (g)'s final problem (against (g)'s ``bundle_adjust``, and its repeat
+    bit for bit), ``run_triangulation(dist_ba=True)`` on (b)'s matches at
+    (g)'s gates and the view-sharded plane sweep at level 2 against
+    ``compute_depth_maps``; then two ranks of ``launch_local`` run (b)'s
+    stage sharded (artifacts the bytes of (b)'s, K1 f32 launched in each)
+    and ``bundle_adjust_sharded`` over their gloo group (the same final
+    state in both, the cost within 1e-4 of (g)'s). One ``dist`` line;
+    returns each rank's K1 f32 launches. ``device="cpu"`` serves a
+    rehearsal on a small scene."""
+    from regard3d_tpu_torch.ba import lm, sharded
+    from regard3d_tpu_torch.core import metrics
+    from regard3d_tpu_torch.core.sfm_data import load_npz
+    from regard3d_tpu_torch.dist import launch
+    from regard3d_tpu_torch.dist import mesh as meshlib
+    from regard3d_tpu_torch.kernels import _build
+    from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.mvs import driver
+    from regard3d_tpu_torch.pipeline import features as fm
+    from regard3d_tpu_torch.pipeline.project import Project
+    from regard3d_tpu_torch.tools.dense_normals import DENSE_KW
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = os.path.join(workdir, "dist")
+    os.makedirs(base)
+    # every rank imports the port from this checkout
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    two = ["cuda:0"] * 2 if device == "cuda" else [device] * 2
+    build_dir = os.path.dirname(_build._lib_path(match_mod._SOURCE))
+    built = {f: os.path.getmtime(os.path.join(build_dir, f))
+             for f in os.listdir(build_dir)}
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    out = {"compute_mode": mode}
+
+    # 3. the command line, started first: its processes start while this
+    # one works on the card. `matches` (the CLI's defaults, as (j)'s) and
+    # then `sfm --dist-ba` on its result, two ranks each, in a session of
+    # their own, so a failure kills the launchers and their ranks at once;
+    # every wait of a rank is bounded
+    proj = os.path.join(workdir, "cli", "proj")
+    n_objects = len(Project.load(proj).objects)
+    t_cli = time.time()
+    r3d = [sys.executable, "-m", "regard3d_tpu_torch.cli", "--device",
+           device, "launch", "-n", "2", "--log-dir"]
+    steps = [r3d + [os.path.join(base, "cli_matches"), "--", "matches",
+                    proj],
+             r3d + [os.path.join(base, "cli_sfm"), "--", "sfm", proj,
+                    "--dist-ba"]]
+    cli = subprocess.Popen(
+        ["bash", "-c", " && ".join(" ".join(map(shlex.quote, c))
+                                   for c in steps)],
+        cwd=os.path.join(workdir, "cli", "cwd"), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True,
+        env=dict(os.environ, R3D_DIST_TIMEOUT_S="600"))
+    try:
+        # 1. in this process: point-sharded BA on (g)'s final problem
+        scene = load_npz(os.path.join(workdir, "sfm", "scene.npz"))
+        state, ba_obs, fixed, opts = _ba_problem(scene)
+        mesh2 = meshlib.make_mesh("obs", two)
+        t0 = time.time()
+        pts = [sharded.bundle_adjust_point_sharded(
+            state, ba_obs, mesh2, opts, fixed_pose_mask=fixed)
+            for _ in range(2)]
+        ba_s = (time.time() - t0) / 2
+        t0 = time.time()
+        one = lm.bundle_adjust(state, ba_obs, opts, fixed_pose_mask=fixed,
+                               device=two[0])
+        one_s = time.time() - t0
+        single = g["ba_repeat"]["final_cost"]
+        pt_cost = pts[0][1].final_cost
+        check(all(torch.equal(a, b) for a, b in zip(pts[0][0], pts[1][0]))
+              and pts[0][1] == pts[1][1],
+              "(n) two point-sharded BA runs on the same state differ")
+        check(abs(pt_cost - single) <= 1e-4 * single,
+              f"(n) point-sharded BA cost {pt_cost} against {single}")
+        out["point_sharded_ba"] = {
+            "shards": [str(d) for d in mesh2.device_list],
+            "final_cost": pt_cost, "bundle_adjust_final_cost": single,
+            "iterations": pts[0][1].iterations, "seconds": ba_s,
+            "bundle_adjust_s": one_s,
+            "bundle_adjust_repeat_cost": one[1].final_cost,
+            "bit_identical": True}
+        log(f"(n) point-sharded BA over {two}: cost {pt_cost} "
+            f"(bundle_adjust {single}), {ba_s:.2f} s a run against "
+            f"{one_s:.2f} s")
+
+        # run_triangulation with the sharded polish at (g)'s gates
+        run_dir = os.path.join(base, "sfm_dist_ba")
+        t0 = time.time()
+        stats = run_sfm(ds, matches, run_dir, dist_ba=True, device=device)
+        sc, ate = check_sfm(ds, run_dir, stats,
+                            f"(n) dist_ba {time.time() - t0:.1f} s:")
+        out["sfm_dist_ba"] = {"cameras": stats["num_cameras"], "ate": ate,
+                              "residual_median_px": stats["residual_median"],
+                              "seconds": time.time() - t0}
+
+        # the view-sharded sweep at level 2 against the host loop
+        params = driver.PlaneSweepParams(**{
+            k: v for k, v in dict(DENSE_KW, level=2).items()
+            if k in ("level", "num_planes", "wsize", "threshold",
+                     "num_sources")})
+        t0 = time.time()
+        got = driver.compute_depth_maps_sharded(
+            scene, ds["images"], params,
+            meshlib.make_mesh("views", two))
+        t1 = time.time()
+        want = driver.compute_depth_maps(scene, ds["images"], params,
+                                         device=device)
+        t2 = time.time()
+        check(set(got) == set(want) and len(got) == N_CAMS,
+              f"(n) sharded depth maps of views {sorted(got)}")
+        flips = valid = 0
+        for v in got:
+            both = got[v].valid & want[v].valid
+            rel = (np.abs(got[v].idepth - want[v].idepth)
+                   / np.abs(want[v].idepth))
+            flips += int((rel[both] > 1e-4).sum())
+            valid += int(both.sum())
+        check(flips <= 0.01 * valid, f"(n) sharded sweep: {flips} plane "
+              f"flips of {valid} valid pixels")
+        out["sweep_sharded"] = {
+            "level": 2, "views": len(got), "valid_px": valid,
+            "flips": flips, "identical": all(
+                np.array_equal(got[v].idepth, want[v].idepth)
+                for v in got), "sharded_s": t1 - t0, "host_loop_s": t2 - t1}
+        log(f"(n) sharded sweep: {flips} flips of {valid} valid pixels, "
+            f"{t1 - t0:.1f} s against {t2 - t1:.1f} s")
+
+        # 2. two ranks: (b)'s stage sharded, then the obs-sharded BA
+        rwork = os.path.join(base, "ranks")
+        os.makedirs(rwork)
+        np.save(os.path.join(rwork, "views.npy"), np.stack(ds["images"]))
+        np.savez(os.path.join(rwork, "ba.npz"), fixed=fixed.numpy(),
+                 **{k: v.numpy() for k, v in state._asdict().items()},
+                 **{k: v.numpy() for k, v in ba_obs._asdict().items()})
+        with open(os.path.join(rwork, "rank.json"), "w") as fh:
+            json.dump({"focals": [ds["f"] * 1.03] * N_CAMS, "max_kp": MAX_KP,
+                       "ba_opts": dataclasses.asdict(opts),
+                       "device": device}, fh)
+        t0 = time.time()
+        rc = launch.launch_local(2, ["-c", RANK, rwork], module=None,
+                                 log_dir=os.path.join(base, "rank_logs"),
+                                 timeout=400)
+        ranks_s = time.time() - t0
+        log1 = os.path.join(base, "rank_logs", "proc1.log")
+        check(rc == 0, f"(n) ranks exit {rc}: " + (
+            open(log1).read()[-3000:] if os.path.exists(log1) else ""))
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(rwork, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        rdir = os.path.join(rwork, "matches")
+        names = [f"image{i:06d}.{e}" for i in range(N_CAMS)
+                 for e in ("feat", "desc")] + [
+            f"matches.{k}.txt" for k in ("putative", "f", "e", "h")]
+        differ = [n for n in names if not same_bytes(
+            os.path.join(matches, n), os.path.join(rdir, n))]
+        check(not differ, f"(n) two-rank stage differs from (b) in {differ}")
+        k1 = [r["launches"]["l2_top2_block_f32"] for r in ranks]
+        # (the CPU rehearsal runs the plain matcher: no launch to count)
+        check(min(k1) >= 1 or device == "cpu",
+              f"(n) K1 f32 launches per rank {k1}")
+        costs = [r["ba"]["final_cost"] for r in ranks]
+        check(costs[0] == costs[1]
+              and ranks[0]["state_sha256"] == ranks[1]["state_sha256"],
+              f"(n) the ranks' BA results differ: {costs}")
+        check(abs(costs[0] - single) <= 1e-4 * single,
+              f"(n) obs-sharded BA cost {costs[0]} against {single}")
+        out["ranks"] = {"seconds": ranks_s,
+                        "artifacts_identical_to_b": len(names),
+                        "per_rank": ranks}
+        log(f"(n) two ranks: stage {[r['stage_s'] for r in ranks]} s, BA "
+            f"{[r['ba_s'] for r in ranks]} s, cost {costs[0]}, K1 {k1}, "
+            f"all_reduce ms {ranks[0]['all_reduce_ms']}")
+
+        # 3. the command line's result
+        cli_out, cli_err = cli.communicate(timeout=600)
+    finally:
+        if cli.poll() is None:
+            os.killpg(cli.pid, signal.SIGKILL)
+            cli.wait()
+    check(cli.returncode == 0, f"(n) cli launch matches, sfm --dist-ba: "
+          f"exit {cli.returncode}\n{cli_out[-2000:]}\n{cli_err[-3000:]}")
+    cli_s = time.time() - t_cli
+    p = Project.load(proj)
+    new = [o for o in p.objects.values() if o.id >= n_objects]
+    check([(o.kind, o.state) for o in new]
+          == [("matches", "finished"), ("triangulation", "finished")],
+          f"(n) cli: new objects {[(o.kind, o.state) for o in new]}")
+    mdir = p.paths(new[0].id).matches_dir
+    differ = [n for n in names if not same_bytes(
+        os.path.join(proj, "matches_1", n), os.path.join(mdir, n))]
+    check(not differ, f"(n) cli launch -n 2 -- matches differs from (j)'s "
+          f"matches in {differ}")
+    res = new[1].results
+    sc = load_npz(os.path.join(p.paths(new[1].id).triangulation_dir,
+                               "scene.npz"))
+    pm = sc.poses.mask.numpy()
+    ate = metrics.ate_rmse(sc.poses.C.numpy()[pm], ds["Cs"][pm])
+    check(res["num_cameras"] == N_CAMS and ate <= ATE_BOUND
+          and res["residual_median"] < 1.0,
+          f"(n) cli sfm --dist-ba: {res['num_cameras']} cameras, ATE "
+          f"{ate:.4f}, median {res['residual_median']:.3f} px")
+    out["cli"] = {"matches_identical_to_j": len(names),
+                  "matches_running_time_s": new[0].running_time_s,
+                  "sfm_dist_ba": {
+                      "cameras": res["num_cameras"], "ate": ate,
+                      "residual_median_px": res["residual_median"],
+                      "running_time_s": new[1].running_time_s},
+                  "wall_s": cli_s}
+    rebuilt = {f: t for f, t in ((f, os.path.getmtime(os.path.join(
+        build_dir, f))) for f in os.listdir(build_dir)) if built.get(f) != t}
+    check(not rebuilt, f"(n) a rank rebuilt the kernels: {rebuilt}")
+    out["layout"] = {
+        "ranks": [{"rank": r["rank"], "device": r["device"],
+                   "backend": r["backend"]} for r in ranks],
+        "cli_ranks": f"2 x {device} (gloo)",
+        "cpu_fallback": device != "cuda"}
+    out["phase_s"] = time.time() - t_phase
+    log(json.dumps({"dist": out}))
+    return k1
+
+
 def phase_accuracy():
     """(h) the radial-K3 twin at the reference's accuracy settings but 512
     RANSAC iterations (2048 there; (j) gates radial-K3 through the command
@@ -1757,15 +2074,17 @@ def run_phases(ds, work, render, scale_wd, stamp):
     stamp("(f)")
     g = phase_sfm(ds, out, work)
     stamp("(g)")
+    k1_ranks = phase_dist(ds, out, work, g)
+    stamp("(n)")
     engines = phase_engines(ds, out, work)
     stamp("(l)")
     paths["detectors"] = phase_detectors(ds, work)
     phase_f64(ds, out, work, {
         "incremental2": dict(ate=g["ate"],
                              residual_median_px=g["residual_px"]["median"],
+                             seconds=g["elapsed_profiled_s"], profiled=True,
                              **{k: g[k] for k in (
-                                 "rms_px", "final_cost",
-                                 "elapsed_profiled_s", "peak_device_gb")}),
+                                 "rms_px", "final_cost", "peak_device_gb")}),
         "global": engines["global"]})
     stamp("(m)")
     phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
@@ -1779,6 +2098,7 @@ def run_phases(ds, work, render, scale_wd, stamp):
     k1_f32["launches_cli"] = k1_cli       # (j)'s matches
     k1_f32["launches_scale"] = k1_scale   # (k)'s matches
     k1_f32["launches_detectors"] = paths["detectors"]     # (m)'s matches
+    k1_f32["launches_ranks"] = k1_ranks   # (n)'s two ranks
     k1_f32["scale"] = {k: scale_row[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
         "library_ms", "shape", "tflops")}
@@ -1792,7 +2112,13 @@ def main():
     import regard3d_tpu_torch  # noqa: F401  (fails outside the repository)
 
     t0 = time.time()
-    stamp = lambda tag: log(f"[{time.time() - t0:.1f} s] {tag} done")
+    last = [t0]
+
+    def stamp(tag):
+        """The time so far and the phase's own seconds."""
+        now = time.time()
+        log(f"[{now - t0:.1f} s] {tag} done in {now - last[0]:.1f} s")
+        last[0] = now
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
     phase_build()

@@ -23,15 +23,24 @@ Counterpart of ``regard3d_tpu/ba/lm.py`` (single device):
 * The LM outer loop runs on the host, with one ``float(cost)`` per trial.
 
 Gauge: ``fixed_pose_mask`` pins chosen cameras. A center prior
-(weight * ||C - C_prior||^2) is the reference's motion-prior option. The
-sharding hooks of the reference (``axis_name``, ``point_axis_name``) belong
-to ``ba/sharded.py``, not ported yet.
+(weight * ||C - C_prior||^2) is the reference's motion-prior option.
+
+Sharding hooks (the reference's ``axis_name`` / ``point_axis_name`` psums):
+``cam_reduce`` and ``point_reduce`` take a tuple of tensors and a site name
+and return their sum over the shards (identity by default, the single-
+device run). The camera system (U, U_i, g_c, g_i) is reduced once at the
+linearization, the camera part of the right-hand side once, (V,6)+(K,9)
+once per CG step; the per-point sums (V_l, g_p, W^T x) go through
+``point_reduce``, which is the identity when the points are sharded with
+all their rows (``ba/sharded.py``). Sites: ``linearize``, ``rhs``,
+``cg_step``, ``back_substitution`` and ``cost``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+import threading
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -75,6 +84,14 @@ class BAObservations(NamedTuple):
 
 NUM_INTR_DOF = 9
 
+# (tensors, site) -> the tensors summed over the shards
+Reduce = Callable[[Tuple[torch.Tensor, ...], str], Tuple[torch.Tensor, ...]]
+
+
+def identity_reduce(tensors, site):
+    """The single-device reduction: nothing to sum."""
+    return tensors
+
 
 def _residual(dw, dC, dX, dintr, R0, C0, intr0, model, X0, uv):
     """Residuals (O, 2) at per-observation local increments dw, dC, dX
@@ -85,6 +102,11 @@ def _residual(dw, dC, dX, dintr, R0, C0, intr0, model, X0, uv):
     params = intr0 + dintr
     proj, _ = cam.project(R, C, model, params, X)
     return proj - uv
+
+
+# forward-mode AD levels are process-wide in PyTorch: shards that run in
+# threads of one process (ba/sharded.py) take turns through the jvp
+_JVP_LOCK = threading.Lock()
 
 
 def _res_and_jac(R0, C0, intr0, model, X0, uv):
@@ -100,7 +122,9 @@ def _res_and_jac(R0, C0, intr0, model, X0, uv):
                          R0, C0, intr0, model, X0, uv)
     basis = torch.eye(18, dtype=X0.dtype, device=X0.device)[:, None, :] \
         .expand(18, O, 18)
-    J = torch.func.vmap(lambda t: torch.func.jvp(f, (z,), (t,))[1])(basis)
+    with _JVP_LOCK:
+        J = torch.func.vmap(lambda t: torch.func.jvp(f, (z,), (t,))[1])(
+            basis)
     return f(z), J.permute(1, 2, 0)
 
 
@@ -210,7 +234,9 @@ def _j_x(J, x):
     return (J @ x[..., None])[..., 0]
 
 
-def _normal_blocks(state, obs, opts, layout: BALayout) -> _Normal:
+def _normal_blocks(state, obs, opts, layout: BALayout,
+                   cam_reduce: Reduce = identity_reduce,
+                   point_reduce: Reduce = identity_reduce) -> _Normal:
     r, A, B, Ji, w = _build_blocks(state, obs, opts)
     wA = A * w[:, None, None]
     wB = B * w[:, None, None]
@@ -219,8 +245,10 @@ def _normal_blocks(state, obs, opts, layout: BALayout) -> _Normal:
     Ui = segment_sum(_outer(wJi, Ji), layout.intr)
     gc = segment_sum(_jt_r(wA, r), layout.cam)
     gi = segment_sum(_jt_r(wJi, r), layout.intr)
+    U, Ui, gc, gi = cam_reduce((U, Ui, gc, gi), "linearize")
     Vl = segment_sum(_outer(wB, B), layout.pt)
     gp = segment_sum(_jt_r(wB, r), layout.pt)
+    Vl, gp = point_reduce((Vl, gp), "linearize")
     return _Normal(A, B, Ji, w, U, Vl, Ui, gc, gp, gi)
 
 
@@ -233,7 +261,8 @@ def _damped_inv(M, lam, eps=1e-12):
 
 def _solve_schur(nb: _Normal, obs: BAObservations, lam, state,
                  opts: BAOptions, fixed_pose_mask, intr_dof_mask,
-                 layout: BALayout):
+                 layout: BALayout, cam_reduce: Reduce = identity_reduce,
+                 point_reduce: Reduce = identity_reduce):
     """One damped Schur/CG solve. Returns (dc (V,6), dp (L,3), di (K,9))."""
     dtype, dev = nb.U.dtype, nb.U.device
     free_c = (~fixed_pose_mask).to(dtype)[:, None]                 # (V, 1)
@@ -259,12 +288,14 @@ def _solve_schur(nb: _Normal, obs: BAObservations, lam, state,
         """W^T [xc; xi] -> per-point 3-vectors."""
         ax = _j_x(nb.A, xc[vid])
         ix = _j_x(nb.Ji, xi[iid])
-        return red_p(_jt_r(wB, ax + ix))
+        return point_reduce((red_p(_jt_r(wB, ax + ix)),),
+                            "back_substitution")[0]
 
     def W_y(yp):
         """W y -> (camera part, intrinsic part)."""
         by = _j_x(nb.B, yp[pid])
-        return red_c(_jt_r(wA, by)), red_i(_jt_r(wJi, by))
+        return cam_reduce((red_c(_jt_r(wA, by)), red_i(_jt_r(wJi, by))),
+                          "rhs")
 
     def S_mv(xc, xi):
         """Implicit reduced-system matvec over stacked [cams; intrinsics]:
@@ -273,11 +304,13 @@ def _solve_schur(nb: _Normal, obs: BAObservations, lam, state,
         xi = xi * intr_free
         ax = _j_x(nb.A, xc[vid])
         ix = _j_x(nb.Ji, xi[iid])
-        t = red_p(_jt_r(wB, ax + ix))
+        t = point_reduce((red_p(_jt_r(wB, ax + ix)),), "cg_step")[0]
         y = _j_x(Vinv, t)
         by = _j_x(nb.B, y[pid])
-        dc_part = red_c(_jt_r(wA, ix - by))
-        di_part = red_i(_jt_r(wJi, ax - by))
+        # the camera and intrinsic parts ship in one reduction: per CG step
+        # (V,6)+(K,9), whatever the landmark count
+        dc_part, di_part = cam_reduce((red_c(_jt_r(wA, ix - by)),
+                                       red_i(_jt_r(wJi, ax - by))), "cg_step")
         uc = _j_x(Ud, xc) + dc_part
         ui = _j_x(Uid, xi) + di_part
         return uc * free_c, ui * intr_free
@@ -344,12 +377,16 @@ def _intr_dof_mask(models, refine: bool, dtype=None):
 
 
 def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
-             center_prior=None, layout: Optional[BALayout] = None):
-    """One damped LM trial step (linearize + Schur/CG solve + apply)."""
+             center_prior=None, layout: Optional[BALayout] = None,
+             cam_reduce: Reduce = identity_reduce,
+             point_reduce: Reduce = identity_reduce):
+    """One damped LM trial step (linearize + Schur/CG solve + apply).
+    With shards, ``obs`` is this shard's rows and the hooks sum over the
+    shards (module docstring)."""
     if layout is None:
         layout = make_layout(obs, state.R.shape[0], state.X.shape[0],
                              state.intr.shape[0])
-    nb = _normal_blocks(state, obs, opts, layout)
+    nb = _normal_blocks(state, obs, opts, layout, cam_reduce, point_reduce)
     if center_prior is not None and opts.center_prior_weight > 0:
         w = opts.center_prior_weight
         eye_c = torch.zeros((6, 6), dtype=state.X.dtype,
@@ -360,7 +397,7 @@ def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
         gc[:, 3:] += w * (state.C - center_prior)
         nb = nb._replace(U=nb.U + w * eye_c[None], gc=gc)
     dc, dp, di = _solve_schur(nb, obs, lam, state, opts, fixed_pose_mask,
-                              intr_mask, layout)
+                              intr_mask, layout, cam_reduce, point_reduce)
     return _apply_step(state, dc, dp, di)
 
 
@@ -372,8 +409,8 @@ class BAStats(NamedTuple):
 
 
 def _full_cost(st: BAState, obs: BAObservations, opts: BAOptions,
-               center_prior):
-    c = compute_cost(st, obs, opts)
+               center_prior, reduce: Reduce = identity_reduce):
+    c = reduce((compute_cost(st, obs, opts).reshape(1),), "cost")[0][0]
     if center_prior is not None and opts.center_prior_weight > 0:
         c = c + opts.center_prior_weight * torch.sum(
             (st.C - center_prior) ** 2)
@@ -382,6 +419,52 @@ def _full_cost(st: BAState, obs: BAObservations, opts: BAOptions,
 
 def _to(x, dev):
     return type(x)(*(t.to(dev) for t in x))
+
+
+def intr_mask_of(obs: BAObservations, num_intrinsics: int,
+                 refine: bool) -> torch.Tensor:
+    """(K, 9) refined-dof mask, each group's model code recovered from the
+    observation table."""
+    intr_models = torch.zeros((num_intrinsics,), dtype=obs.model.dtype,
+                              device=obs.model.device)
+    if obs.model.numel():
+        intr_models = intr_models.scatter_reduce(0, obs.intr_id, obs.model,
+                                                 "amax", include_self=False)
+    return _intr_dof_mask(intr_models, refine)
+
+
+def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
+            fixed_pose_mask, intr_mask, center_prior, layout: BALayout,
+            cam_reduce: Reduce = identity_reduce,
+            point_reduce: Reduce = identity_reduce):
+    """The LM outer loop on the host, one cost read per trial. With shards,
+    every shard runs it on its own rows; the reduced costs agree, so every
+    shard takes the same steps. Returns (state, BAStats)."""
+    cost_of = lambda st: float(_full_cost(st, obs, opts, center_prior,
+                                          cam_reduce))
+    with torch.no_grad():
+        cost = cost_of(state)
+        initial = cost
+        lam = opts.init_lambda
+        it = 0
+        for it in range(1, opts.max_iterations + 1):
+            new_state = lm_trial(state, lam, obs, opts, fixed_pose_mask,
+                                 intr_mask, center_prior, layout,
+                                 cam_reduce, point_reduce)
+            new_cost = cost_of(new_state)
+            if new_cost == new_cost and abs(new_cost) != float("inf") \
+                    and new_cost < cost:
+                rel = (cost - new_cost) / max(cost, 1e-30)
+                state = new_state
+                cost = new_cost
+                lam = max(lam * opts.lambda_down, opts.min_lambda)
+                if rel < opts.ftol:
+                    break
+            else:
+                lam = lam * opts.lambda_up
+                if lam > opts.max_lambda:
+                    break
+    return state, BAStats(initial, cost, it, lam)
 
 
 def bundle_adjust(state: BAState, obs: BAObservations,
@@ -404,36 +487,9 @@ def bundle_adjust(state: BAState, obs: BAObservations,
     fixed_pose_mask = fixed_pose_mask.to(dev)
     if center_prior is not None:
         center_prior = center_prior.to(dev)
-
-    # model code per intrinsic group, recovered from the observation table
     K = state.intr.shape[0]
-    intr_models = torch.zeros((K,), dtype=obs.model.dtype, device=dev)
-    if obs.model.numel():
-        intr_models = intr_models.scatter_reduce(0, obs.intr_id, obs.model,
-                                                 "amax", include_self=False)
-    intr_mask = _intr_dof_mask(intr_models, opts.refine_intrinsics)
+    intr_mask = intr_mask_of(obs, K, opts.refine_intrinsics)
     if layout is None:
         layout = make_layout(obs, V, state.X.shape[0], K)
-
-    with torch.no_grad():
-        cost = float(_full_cost(state, obs, opts, center_prior))
-        initial = cost
-        lam = opts.init_lambda
-        it = 0
-        for it in range(1, opts.max_iterations + 1):
-            new_state = lm_trial(state, lam, obs, opts, fixed_pose_mask,
-                                 intr_mask, center_prior, layout)
-            new_cost = float(_full_cost(new_state, obs, opts, center_prior))
-            if new_cost == new_cost and abs(new_cost) != float("inf") \
-                    and new_cost < cost:
-                rel = (cost - new_cost) / max(cost, 1e-30)
-                state = new_state
-                cost = new_cost
-                lam = max(lam * opts.lambda_down, opts.min_lambda)
-                if rel < opts.ftol:
-                    break
-            else:
-                lam = lam * opts.lambda_up
-                if lam > opts.max_lambda:
-                    break
-    return state, BAStats(initial, cost, it, lam)
+    return lm_loop(state, obs, opts, fixed_pose_mask, intr_mask,
+                   center_prior, layout)

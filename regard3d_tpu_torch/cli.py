@@ -8,9 +8,11 @@ surface) raise with no card unless ``--device cpu`` is given, and
 ``project.json`` never records the device. ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace (``DIR/trace.json``): on a card, its
 kernels, copies and launch calls, as a JAX trace holds the device's work
-and the runtime's dispatch (on the CPU, the operators). Not ported yet, each
-raising ``NotImplementedError`` naming its ROADMAP §1 item: ``launch``,
-multi-process runs and ``--dist-ba`` (11).
+and the runtime's dispatch (on the CPU, the operators). ``launch -n N --
+<subcommand>`` runs a subcommand in N coordinated processes
+(``dist/launch.py``): ``matches`` shards its work over them, ``sfm
+--dist-ba`` shards its final bundle adjustment, and secondaries skip every
+other subcommand; only the primary writes the project.
 
 Maps the reference's GUI workflow (``Regard3DMainFrame`` orchestration
 methods: addComputeMatches / triangulate / createDensePointcloud /
@@ -26,6 +28,7 @@ createSurface / export*, src/Regard3DMainFrame.h:80-186) onto subcommands:
                                          (CMVS/PMVS, MVE, SMVS)
     r3d surface <dir> [options]          external surface + texturing
     r3d info <dir>                       show the project tree
+    r3d launch -n N -- <subcommand> ...  N coordinated processes
 
 Run ``python -m regard3d_tpu_torch.cli --help``.
 """
@@ -136,14 +139,48 @@ def cmd_delete(args):
     print(f"deleted {kind} [{args.id}] and its subtree")
 
 
+def _handshake_out_dir(project_dir: str, token: str) -> str:
+    """A secondary's wait for the primary's token-stamped handshake, which
+    names the step directory of a multi-process ``matches``."""
+    from regard3d_tpu_torch.dist import launch as launch_mod
+    hs = os.path.join(project_dir, ".matches_handshake")
+    deadline = time.time() + min(600.0, launch_mod.timeout_s())
+    while True:
+        try:
+            with open(hs) as fh:
+                d = json.load(fh)
+            if d.get("token") == token:
+                return d["out_dir"]
+        except (OSError, ValueError):
+            pass
+        if time.time() > deadline:
+            raise TimeoutError("no matches handshake from the primary")
+        time.sleep(0.5)
+
+
 def cmd_matches(args):
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline.features import SENSITIVITY_PRESETS
     from regard3d_tpu_torch.pipeline.project import Project
+    # multi-process matching (r3d launch -n N -- matches): the primary owns
+    # every project mutation; secondaries learn the step directory from a
+    # token-stamped handshake file and work on their shards
+    proc_count = int(os.environ.get("R3D_NUM_PROCESSES", "1"))
+    proc_id = int(os.environ.get("R3D_PROCESS_ID", "0"))
+    token = os.environ.get("R3D_COORDINATOR", "local")
     p = Project.load(args.project)
-    ps, infos, images = _load_pictureset(p)
-    obj = p.add_compute_matches(ps.id, _params(args))
-    out_dir = p.prepare(obj.id)
+    if proc_id == 0:
+        ps, infos, images = _load_pictureset(p)
+        obj = p.add_compute_matches(ps.id, _params(args))
+        out_dir = p.prepare(obj.id)
+        if proc_count > 1:
+            with open(os.path.join(args.project, ".matches_handshake"),
+                      "w") as fh:
+                json.dump({"token": token, "out_dir": out_dir}, fh)
+    else:
+        out_dir = _handshake_out_dir(args.project, token)
+        p = Project.load(args.project)
+        _, infos, images = _load_pictureset(p)
     t0 = time.time()
     try:
         thr = SENSITIVITY_PRESETS.get(args.sensitivity, 0.0007)
@@ -158,11 +195,14 @@ def cmd_matches(args):
             progress=_progress("matching"),
             pairs=(cm.sequential_pairs(len(images), args.window)
                    if args.window else None),
-            retrieval_k=args.retrieval_k, device=args.device)
+            retrieval_k=args.retrieval_k, device=args.device,
+            proc_id=proc_id, proc_count=proc_count)
     except Exception as e:
-        p.fail(obj.id, str(e))
+        if proc_id == 0:
+            p.fail(obj.id, str(e))
         raise
-    p.finish(obj.id, stats, time.time() - t0)
+    if proc_id == 0:
+        p.finish(obj.id, stats, time.time() - t0)
     print(json.dumps(stats, indent=1, default=str))
 
 
@@ -182,7 +222,8 @@ def cmd_sfm(args):
         translation_averaging=args.translation_averaging,
         refine_intrinsics=not args.no_refine_intrinsics,
         use_gps=args.use_gps, f64=args.f64, dist_ba=args.dist_ba)
-    ts.check_params(params)       # unported options raise before any write
+    from regard3d_tpu_torch.dist import launch as launch_mod
+    primary = launch_mod.is_primary()
     p = Project.load(args.project)
     mobj = _pick(p, "matches", args.id)
     ps, infos, images = _load_pictureset(p, mobj.parent_id)
@@ -194,35 +235,50 @@ def cmd_sfm(args):
     intr_id, intr, models, widths, heights = intr_mod.build_intrinsics(
         views, model_code)
 
+    if not primary:
+        # secondaries take part in the collective compute only: no project
+        # mutation, their artifacts in a directory that is then removed
+        import tempfile
+        with tempfile.TemporaryDirectory(prefix="r3d_secondary_") as out:
+            ts.run_triangulation(
+                p.paths(mobj.id).matches_dir, out, images, intr_id, intr,
+                models, params=params, center_priors=_center_priors(
+                    args, infos), device=args.device, write_artifacts=False)
+        return
     obj = p.add_triangulation(mobj.id, _params(args))
     out_dir = p.prepare(obj.id)
     t0 = time.time()
     try:
-        center_priors = None
-        if args.use_gps:
-            from regard3d_tpu_torch.ingest import geodesy
-            gps = [i.get("gps") for i in infos]
-            if sum(g is not None for g in gps) >= 3:
-                ecef = np.asarray([
-                    geodesy.lla_to_ecef(*g) if g is not None
-                    else (np.nan,) * 3 for g in gps])
-                valid = np.isfinite(ecef).all(1)
-                local, origin, Renu = geodesy.local_enu_frame(ecef[valid])
-                center_priors = np.full((len(gps), 3), np.nan)
-                center_priors[valid] = local
-            else:
-                print("warning: <3 images carry GPS; ignoring --use-gps",
-                      file=sys.stderr)
         stats = ts.run_triangulation(
             p.paths(mobj.id).matches_dir, out_dir, images,
             intr_id, intr, models, params=params,
             image_names=[os.path.basename(i["path"]) for i in infos],
-            center_priors=center_priors, device=args.device)
+            center_priors=_center_priors(args, infos), device=args.device)
     except Exception as e:
         p.fail(obj.id, str(e))
         raise
     p.finish(obj.id, stats, time.time() - t0)
     print(json.dumps(stats, indent=1, default=str))
+
+
+def _center_priors(args, infos):
+    """GPS centre priors in a local ENU frame with ``--use-gps`` (None
+    without it, or with fewer than three GPS images)."""
+    if not args.use_gps:
+        return None
+    from regard3d_tpu_torch.ingest import geodesy
+    gps = [i.get("gps") for i in infos]
+    if sum(g is not None for g in gps) < 3:
+        print("warning: <3 images carry GPS; ignoring --use-gps",
+              file=sys.stderr)
+        return None
+    ecef = np.asarray([geodesy.lla_to_ecef(*g) if g is not None
+                       else (np.nan,) * 3 for g in gps])
+    valid = np.isfinite(ecef).all(1)
+    local, origin, Renu = geodesy.local_enu_frame(ecef[valid])
+    center_priors = np.full((len(gps), 3), np.nan)
+    center_priors[valid] = local
+    return center_priors
 
 
 def cmd_export(args):
@@ -373,10 +429,26 @@ def cmd_pairs(args):
 
 
 def cmd_launch(args):
-    """``r3d launch -n N -- <subcommand>``: N coordinated processes."""
-    raise NotImplementedError(
-        "r3d launch (multi-process runs) waits for a later slice "
-        "(ROADMAP §1 item 11)")
+    """``r3d launch -n N -- <subcommand> ...``: the subcommand in N
+    coordinated processes (``dist/launch.py``). The children take this
+    command's ``--device`` unless their arguments give one; a compute
+    subcommand's device is resolved before any process starts. A failed
+    rank stops the others; every wait of a rank is bounded by
+    ``R3D_DIST_TIMEOUT_S``."""
+    from regard3d_tpu_torch import runtime
+    from regard3d_tpu_torch.dist import launch as launch_mod
+    rest = args.rest[1:] if args.rest[:1] == ["--"] else args.rest
+    if not rest:
+        raise SystemExit("usage: r3d launch -n N -- <subcommand> [args...]")
+    if not (rest[0] == "--device" or rest[0].startswith("--device=")):
+        rest = ["--device", args.device] + rest
+    child = build_parser().parse_args(rest)
+    if child.cmd in COMPUTE_COMMANDS:
+        runtime.resolve_device(child.device)     # raises with no card
+    sys.exit(launch_mod.launch_local(
+        args.num_processes, rest,
+        devices_per_process=args.devices_per_process,
+        log_dir=args.log_dir))
 
 
 def cmd_camera_db(args):
@@ -648,11 +720,17 @@ def build_parser():
 
 
 def main(argv=None):
-    if int(os.environ.get("R3D_NUM_PROCESSES", "1")) > 1:
-        raise NotImplementedError(
-            "multi-process runs (R3D_NUM_PROCESSES > 1) wait for a later "
-            "slice (ROADMAP §1 item 11)")
+    from regard3d_tpu_torch.dist import launch as launch_mod
+    multiproc = launch_mod.init_from_env()     # join a multi-process job
     args = build_parser().parse_args(argv)
+    # cross-process subcommands: `sfm` (the --dist-ba collective polish)
+    # and `matches` (sharded, merged on the primary); every other one would
+    # race on the same artifact files, so secondaries skip it
+    if (multiproc and not launch_mod.is_primary()
+            and args.cmd not in ("sfm", "matches")):
+        print(f"r3d: secondary process skipping non-distributed "
+              f"subcommand {args.cmd!r}", file=sys.stderr)
+        return
     if args.cmd in COMPUTE_COMMANDS:
         from regard3d_tpu_torch import runtime
         runtime.resolve_device(args.device)     # raises with no card

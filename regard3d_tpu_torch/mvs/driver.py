@@ -16,8 +16,8 @@ co-visibility signal, ``src/R3DDensificationProcess.cpp:113-130``).
 
 Profiler spans: ``densify.sweep`` (one per view) and ``densify.fusion``
 (one per view). ``run_native_densification`` is the project-store entry
-point (``densify --method tpu``), on one device. Not ported yet: the
-view-sharded sweep (``compute_depth_maps_sharded``, ROADMAP §1 item 11).
+point (``densify --method tpu``); with more than one card visible it
+sweeps the views over all of them (``compute_depth_maps_sharded``).
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ from torch.profiler import record_function
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.core.sfm_data import _np
 from regard3d_tpu_torch.core.types import Scene
+from regard3d_tpu_torch.dist import mesh as meshlib
 from regard3d_tpu_torch.mvs import fusion, planesweep
 from regard3d_tpu_torch.mvs.planesweep import PlaneSweepParams
 
@@ -231,6 +232,76 @@ def compute_depth_maps(scene: Scene, images: Sequence[np.ndarray],
     return out
 
 
+def compute_depth_maps_sharded(scene: Scene, images: Sequence[np.ndarray],
+                               params: PlaneSweepParams,
+                               mesh: meshlib.Mesh
+                               ) -> Dict[int, DepthMapResult]:
+    """Mesh-sharded plane sweep: reference views go round-robin over the
+    devices of ``mesh`` (axis ``views``), one thread per device (the
+    counterpart of CMVS farming PMVS clusters to processes).
+
+    The reference runs one batched sweep program over the views, so it
+    aggregates every view with ONE ``top_k``: the fewest live sources in
+    the batch. So does this. It matches :func:`compute_depth_maps` only
+    when every view has its full set of sources."""
+    devs = mesh.device_list
+    views = _posed_views(scene)
+    if len(views) < 2:
+        return {}
+    sources = select_sources(scene, params.num_sources)
+    gray, _rgb, _hw = _prep_images(images, scene, views, params.level,
+                                   device=devs[0])
+    pid = _np(scene.views.pose_id)
+    Rs = _np(scene.poses.R)
+    Cs = _np(scene.poses.C)
+
+    S = params.num_sources
+    problems = []
+    for v in views:
+        srcs = sources.get(v, [])
+        rng = depth_range(scene, v)
+        if not srcs or rng is None:
+            continue
+        depths = planesweep.inverse_depth_planes(rng[0], rng[1],
+                                                 params.num_planes)
+        K_ref = _K_for(scene, v, params.level)
+        src_ids = (srcs + [srcs[0]] * S)[:S]
+        homos = planesweep.plane_homographies(
+            K_ref, Rs[pid[v]], Cs[pid[v]],
+            np.stack([_K_for(scene, s, params.level) for s in src_ids]),
+            Rs[pid[src_ids]], Cs[pid[src_ids]], depths)
+        problems.append((v, src_ids, np.array([i < len(srcs)
+                                               for i in range(S)]),
+                         homos.astype(np.float32),
+                         (1.0 / depths).astype(np.float32)))
+    if not problems:
+        return {}
+    top_k = min(params.agg_top_k, min(int(p[2].sum()) for p in problems))
+
+    def sweep(prob, dev):
+        v, src_ids, live, homos, idep = prob
+        f32 = dict(dtype=torch.float32, device=dev)
+        with record_function("densify.sweep"), torch.no_grad():
+            idepth, ncc = planesweep.sweep(
+                torch.as_tensor(gray[v], **f32),
+                torch.as_tensor(np.stack([gray[s] for s in src_ids]), **f32),
+                torch.as_tensor(live, device=dev),
+                torch.as_tensor(homos, **f32), torch.as_tensor(idep, **f32),
+                wsize=params.wsize, top_k=top_k, chunk=params.plane_chunk)
+            return _np(idepth), _np(ncc)
+
+    out: Dict[int, DepthMapResult] = {}
+    for prob, (idepth, ncc) in zip(problems,
+                                   meshlib.run_on_mesh(sweep, problems,
+                                                       mesh)):
+        v = prob[0]
+        out[v] = DepthMapResult(
+            view_id=v, idepth=idepth, ncc=ncc,
+            valid=ncc >= params.threshold, K=_K_for(scene, v, params.level),
+            sources=sources[v])
+    return out
+
+
 def fuse_depth_maps(scene: Scene, images: Sequence[np.ndarray],
                     dmaps: Dict[int, DepthMapResult],
                     params: PlaneSweepParams, csize: int = 2,
@@ -289,18 +360,25 @@ def densify_scene(scene: Scene, images: Sequence[np.ndarray],
                   level: int = 1, num_planes: int = 96, wsize: int = 7,
                   threshold: float = 0.7, num_sources: int = 6,
                   csize: int = 2, min_image_num: int = 3,
-                  depth_tol: float = 0.01, device=None):
+                  depth_tol: float = 0.01, device=None,
+                  mesh: Optional[meshlib.Mesh] = None):
     """End-to-end native densification: scene + images -> point cloud
     (xyz, normals, rgb in [0, 1], depth maps), on ``cuda`` unless
-    ``device="cpu"``.
+    ``device="cpu"``. With ``mesh`` the sweep shards its views over the
+    mesh's devices (``compute_depth_maps_sharded``) and the fusion runs on
+    its first device.
 
     ``min_image_num`` counts the reference view itself (PMVS semantics),
     so the cross-view vote needs ``min_image_num - 1`` agreeing sources."""
-    dev = runtime.resolve_device(device)
+    dev = (mesh.device_list[0] if mesh is not None
+           else runtime.resolve_device(device))
     params = PlaneSweepParams(level=level, num_planes=num_planes,
                               wsize=wsize, threshold=threshold,
                               num_sources=num_sources)
-    dmaps = compute_depth_maps(scene, images, params, device=dev)
+    if mesh is not None:
+        dmaps = compute_depth_maps_sharded(scene, images, params, mesh)
+    else:
+        dmaps = compute_depth_maps(scene, images, params, device=dev)
     xyz, nrm, rgb = fuse_depth_maps(
         scene, images, dmaps, params, csize=csize,
         min_consistent=max(min_image_num - 1, 1), tol=depth_tol, device=dev)
@@ -310,9 +388,10 @@ def densify_scene(scene: Scene, images: Sequence[np.ndarray],
 def run_native_densification(project, triangulation_id: int, out_dir: str,
                              args, device=None) -> Dict:
     """Project-store entry point (dispatch target of ``densify --method
-    tpu``) on one device (``cuda`` unless ``device="cpu"``); returns the
-    same result dict as the external runners and writes the reference's
-    ``depth_maps.npz`` and ``dense.ply``."""
+    tpu``) on ``cuda`` unless ``device="cpu"``, its sweep over every card
+    when more than one is visible; returns the same result dict as the
+    external runners and writes the reference's ``depth_maps.npz`` and
+    ``dense.ply``."""
     import os
 
     from regard3d_tpu_torch.core import sfm_data
@@ -333,7 +412,9 @@ def run_native_densification(project, triangulation_id: int, out_dir: str,
         num_sources=getattr(args, "num_sources", 6),
         csize=getattr(args, "csize", 2),
         min_image_num=getattr(args, "min_image_num", 3),
-        device=device)
+        device=device,
+        mesh=meshlib.local_mesh("views", None,
+                                runtime.resolve_device(device)))
 
     np.savez_compressed(
         os.path.join(out_dir, "depth_maps.npz"),

@@ -12,6 +12,11 @@ Artifact contract per image (byte-compatible with the reference, both ways):
   orientation`` (OpenMVG SIOPointFeature format);
 * ``imageXXXXXX.desc`` — binary: uint64 count + float32[count, 144];
 * existing files are reused unless ``force`` (resume semantics).
+
+With a mesh (axis ``images``), the buckets go round-robin over its devices,
+one thread per device: every image is still detected in the batch it has
+without a mesh, so the artifacts are the same bytes (a convolution's
+algorithm may depend on the batch on the card).
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 
 from regard3d_tpu_torch import native, runtime
 from regard3d_tpu_torch.core.types import Descriptors, Keypoints
+from regard3d_tpu_torch.dist import mesh as meshlib
 from regard3d_tpu_torch.ingest import image_io
 from regard3d_tpu_torch.kernels import corners, detect, liop
 from regard3d_tpu_torch.kernels.scale_space import ScaleSpaceConfig
@@ -176,6 +182,28 @@ def load_counts(out_dir: str, num_images: int) -> List[int]:
     return out
 
 
+def image_buckets(images: Sequence[np.ndarray]) -> List[List[int]]:
+    """The image indices of each detector batch, in the order
+    ``extract_features`` runs them."""
+    return [list(b.indices) for b in image_io.bucket_images(images)]
+
+
+def _bucket_features(b, detector, cfg, max_keypoints, kp_size_factor, dev):
+    """One bucket's keypoints and descriptors, as numpy arrays."""
+    with torch.no_grad():
+        data = torch.as_tensor(b.data, dtype=torch.float32, device=dev)
+        if detector in HOST_DETECTORS:
+            kps = _detect_host_bucket(b, detector, max_keypoints, dev)
+        else:
+            sizes = torch.as_tensor(b.true_sizes, device=dev)
+            kps = _detect_device(data, sizes[:, 0], sizes[:, 1], detector,
+                                 cfg, max_keypoints)
+        descs = liop.describe_liop(data, kps, kp_size_factor)
+    return (kps.mask.cpu().numpy(), kps.xy.cpu().numpy(),
+            kps.scale.cpu().numpy(), kps.angle.cpu().numpy(),
+            descs.data.cpu().numpy())
+
+
 def extract_features(images: Sequence[np.ndarray], out_dir: str,
                      threshold: float = 0.0007,
                      max_keypoints: int = 4096,
@@ -184,11 +212,13 @@ def extract_features(images: Sequence[np.ndarray], out_dir: str,
                      detector: str = "fast-akaze",
                      progress=None,
                      subset: Optional[Sequence[int]] = None,
-                     device=None) -> List[int]:
+                     device=None, mesh=None) -> List[int]:
     """Detect + describe every image; write artifacts; return keypoint
     counts. Cached images are skipped (resume semantics). ``subset``: only
-    these image indices are processed/counted. Runs on ``device``
-    (default cuda)."""
+    these image indices are processed/counted (a process's share of a
+    multi-process run: whole buckets of ``image_buckets``). Runs on
+    ``device`` (default cuda), or round-robin over the devices of ``mesh``
+    by bucket."""
     dev = runtime.resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     detector = canonical_detector(detector)
@@ -199,23 +229,14 @@ def extract_features(images: Sequence[np.ndarray], out_dir: str,
     counts = [0] * len(images)
 
     cfg = ScaleSpaceConfig(dthreshold=threshold)
+    buckets = image_io.bucket_images([images[i] for i in todo]) if todo \
+        else []
+    run = lambda b, d: _bucket_features(b, detector, cfg, max_keypoints,
+                                        kp_size_factor, d)
+    results = (meshlib.run_on_mesh(run, buckets, mesh) if mesh is not None
+               else (run(b, dev) for b in buckets))
     done = 0
-    for b in (image_io.bucket_images([images[i] for i in todo])
-              if todo else []):
-        with torch.no_grad():
-            data = torch.as_tensor(b.data, dtype=torch.float32, device=dev)
-            if detector in HOST_DETECTORS:
-                kps = _detect_host_bucket(b, detector, max_keypoints, dev)
-            else:
-                sizes = torch.as_tensor(b.true_sizes, device=dev)
-                kps = _detect_device(data, sizes[:, 0], sizes[:, 1],
-                                     detector, cfg, max_keypoints)
-            descs = liop.describe_liop(data, kps, kp_size_factor)
-        m_all = kps.mask.cpu().numpy()
-        xy = kps.xy.cpu().numpy()
-        sc = kps.scale.cpu().numpy()
-        an = kps.angle.cpu().numpy()
-        d_np = descs.data.cpu().numpy()
+    for b, (m_all, xy, sc, an, d_np) in zip(buckets, results):
         for bi, orig_local in enumerate(b.indices):
             img_index = todo[orig_local]
             m = m_all[bi]

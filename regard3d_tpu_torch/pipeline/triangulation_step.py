@@ -12,8 +12,9 @@ reference's residual statistics.
 Runs on ``device`` (default cuda; raises with no card unless the CPU is
 asked for). ``f64=True`` runs the float64 engines: the inputs, the engine
 state, triangulation and BA in float64, the minimal-solver sweeps in
-float32 as in the reference. Waiting for a later slice, raising
-``NotImplementedError`` naming its ROADMAP §1 item: the sharded BA polish.
+float32 as in the reference. ``dist_ba=True`` adds a final BA polish
+sharded over every card of the process (point blocks) or over the ranks of
+a multi-process job (observations; ``ba/sharded.py``).
 """
 
 from __future__ import annotations
@@ -52,7 +53,10 @@ class TriangulationParams:
     matches_kind: str = "f"           # global engine requires "e"
     min_pair_matches: int = 30        # global: pair-support gate
     f64: bool = False                 # float64 engines
-    dist_ba: bool = False             # final BA sharded over all devices
+    dist_ba: bool = False             # final BA polish sharded over every
+                                      # card, or every rank of a multi-
+                                      # process job (`r3d launch`), which
+                                      # all call it collectively
     dist_ba_iterations: int = 30
     ba_every: int = 3                 # incremental: local BA cadence
     ba_iterations: int = 20
@@ -161,14 +165,6 @@ def colorize_tracks(inputs, result, images: Sequence[np.ndarray]
     return colors
 
 
-def check_params(params: TriangulationParams):
-    """Raise ``NotImplementedError`` for the options not ported yet."""
-    if params.dist_ba:
-        raise NotImplementedError(
-            "dist_ba=True (sharded BA) waits for a later slice (ROADMAP §1 "
-            "item 11)")
-
-
 def run_triangulation(matches_dir: str, out_dir: str,
                       images: Sequence[np.ndarray],
                       intr_id: np.ndarray, intr: np.ndarray,
@@ -178,13 +174,16 @@ def run_triangulation(matches_dir: str, out_dir: str,
                       center_priors: Optional[np.ndarray] = None,
                       seed: int = 0, device=None,
                       sample_provider: Optional[
-                          incremental.SampleProvider] = None) -> Dict:
+                          incremental.SampleProvider] = None,
+                      write_artifacts: bool = True) -> Dict:
     """Full triangulation step; writes the artifacts; returns stats.
     ``engine="incremental"`` starts from ``params.initial_pair`` (None:
     MaxPair, as the reference); ``center_priors`` (V, 3) anchor the result
     when ``params.use_gps``. ``engine="global"`` reads ``matches.e.txt``.
-    ``sample_provider``: the engine's draws (``sfm/incremental.py``)."""
-    check_params(params)
+    ``sample_provider``: the engine's draws (``sfm/incremental.py``).
+    ``write_artifacts=False`` computes everything but touches no file: the
+    secondary processes of a multi-process job, so only the primary writes
+    (``dist/launch.py`` ``is_primary``)."""
     dev = runtime.resolve_device(device)
     t0 = time.time()
     os.makedirs(out_dir, exist_ok=True)
@@ -214,21 +213,24 @@ def run_triangulation(matches_dir: str, out_dir: str,
                 final_ba_iterations=params.final_ba_iterations),
             seed=seed, device=dev, sample_provider=sample_provider,
             center_priors=(center_priors if params.use_gps else None))
+    if params.dist_ba:
+        result = _dist_ba_polish(result, inputs, params, dev)
 
     colors = colorize_tracks(inputs, result, images)
     scene = result_to_scene(result, inputs, image_sizes, colors)
     ok = np.asarray(result.track_ok)
     X_np = result.X.cpu().numpy()
     C_np = result.C.cpu().numpy()
-    sfm_data.save_npz(os.path.join(out_dir, "scene.npz"), scene)
-    sfm_data.save_json(os.path.join(out_dir, "sfm_data.json"), scene,
-                       image_names)
-    rgb = np.clip(colors[ok] * 255, 0, 255).astype(np.uint8)
-    ply_mod.export_cloud_and_poses(
-        os.path.join(out_dir, "cloud_and_poses.ply"), X_np[ok], rgb,
-        C_np[result.pose_mask])
-    ply_mod.write_ply(os.path.join(out_dir, "FinalColorized.ply"),
-                      ply_mod.PlyData(xyz=X_np[ok], rgb=rgb))
+    if write_artifacts:
+        sfm_data.save_npz(os.path.join(out_dir, "scene.npz"), scene)
+        sfm_data.save_json(os.path.join(out_dir, "sfm_data.json"), scene,
+                           image_names)
+        rgb = np.clip(colors[ok] * 255, 0, 255).astype(np.uint8)
+        ply_mod.export_cloud_and_poses(
+            os.path.join(out_dir, "cloud_and_poses.ply"), X_np[ok], rgb,
+            C_np[result.pose_mask])
+        ply_mod.write_ply(os.path.join(out_dir, "FinalColorized.ply"),
+                          ply_mod.PlyData(xyz=X_np[ok], rgb=rgb))
     stats = dict(result.stats)
     stats["elapsed_s"] = time.time() - t0
 
@@ -261,15 +263,71 @@ def run_triangulation(matches_dir: str, out_dir: str,
             "mean_px": float(sums[v] / n_obs[v]) if n_obs[v] else float("nan"),
             "median_px": float(np.median(rv)) if len(rv) else float("nan"),
         })
+    if params.dist_ba and len(r):
+        # the sharded polish changed the state after the engine computed
+        # its stats: the residual summary comes from the final state
+        stats.update({
+            "rms_px": float(np.sqrt((r ** 2).mean())),
+            "residual_min": float(r.min()),
+            "residual_max": float(r.max()),
+            "residual_mean": float(r.mean()),
+            "residual_median": float(np.median(r)),
+        })
     if len(r):
         counts, edges = np.histogram(r, bins=20,
                                      range=(0.0, max(4.0, float(r.max()))))
         hist = (edges, counts)
     else:
         hist = None
-    snaps = scene_snapshots_svg(C_np, result.R.cpu().numpy(),
-                                result.pose_mask, X_np, ok, colors=colors)
-    write_html_report(os.path.join(out_dir, "Reconstruction_Report.html"),
-                      stats, params, views=views_rows, histogram=hist,
-                      snapshots=snaps)
+    if write_artifacts:
+        snaps = scene_snapshots_svg(C_np, result.R.cpu().numpy(),
+                                    result.pose_mask, X_np, ok,
+                                    colors=colors)
+        write_html_report(os.path.join(out_dir,
+                                       "Reconstruction_Report.html"),
+                          stats, params, views=views_rows, histogram=hist,
+                          snapshots=snaps)
     return stats
+
+
+def _dist_ba_polish(result: incremental.SfMResult,
+                    inputs: incremental.SfMInputs,
+                    params: TriangulationParams,
+                    dev: torch.device) -> incremental.SfMResult:
+    """Final BA refinement, sharded. In one process the landmark blocks
+    shard over every card (``bundle_adjust_point_sharded``; on the CPU,
+    one shard); in a multi-process job the observations shard over the
+    ranks (``bundle_adjust_sharded``), and every rank must call this
+    (``r3d sfm --dist-ba`` under ``r3d launch``)."""
+    from regard3d_tpu_torch.ba import lm as lm_mod, sharded
+    from regard3d_tpu_torch.dist import mesh as meshlib
+    tid = inputs.track_id
+    vid = inputs.view_id
+    live = (result.obs_active & result.track_ok[tid.cpu().numpy()]
+            & result.pose_mask[vid.cpu().numpy()])
+    g = inputs.intr_id[vid]
+    obs = lm_mod.BAObservations(
+        view_id=vid, intr_id=g, point_id=tid, model=inputs.models[g],
+        xy=inputs.xy,
+        weight=torch.as_tensor(live, dtype=inputs.xy.dtype, device=dev))
+    # gauge: unposed cameras stay fixed, plus the first posed camera
+    fixed = ~result.pose_mask.copy()
+    posed = np.nonzero(result.pose_mask)[0]
+    if len(posed):
+        fixed[posed[0]] = True
+    state = lm_mod.BAState(R=result.R, C=result.C, intr=result.intr,
+                           X=result.X)
+    opts = lm_mod.BAOptions(max_iterations=params.dist_ba_iterations,
+                            refine_intrinsics=params.refine_intrinsics)
+    fixed = torch.as_tensor(fixed, device=dev)
+    if torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        out, _ = sharded.bundle_adjust_sharded(
+            state, obs, None, opts, fixed_pose_mask=fixed, device=dev)
+    else:
+        mesh = (meshlib.make_mesh("obs") if dev.type == "cuda"
+                else meshlib.make_mesh("obs", [dev]))
+        out, _ = sharded.bundle_adjust_point_sharded(
+            state, obs, mesh, opts, fixed_pose_mask=fixed)
+    out = lm_mod._to(out, dev)
+    return result._replace(R=out.R, C=out.C, intr=out.intr, X=out.X)

@@ -293,20 +293,20 @@ def test_run_incremental_stellar_matches_reference():
     assert "init_e" not in replay.calls
 
 
-def test_unported_options_raise():
-    """The sharded BA still raises, naming its ROADMAP item; float64 and
-    stellar with a user's initial pair pass the check (stellar is ignored
-    there, as in the reference)."""
-    for kw, item in ((dict(dist_ba=True), 11),
-                     (dict(dist_ba=True, f64=True), 11)):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP §1 item {item}"):
-            tts.run_triangulation("/nonexistent", "/nonexistent", [],
-                                  np.zeros(0), np.zeros((1, 9)),
-                                  np.zeros(1), tts.TriangulationParams(**kw),
-                                  device="cpu")
-    for kw in (dict(engine="incremental", initial_pair=(0, 1),
+def test_unported_options_raise(tmp_path):
+    """No option of the menu is left unported: the sharded BA polish
+    (``dist_ba``, alone and with float64), float64 and stellar with a
+    user's initial pair (stellar is ignored there, as in the reference) all
+    get past the options to reading the match file, which is missing
+    here."""
+    for kw in (dict(dist_ba=True), dict(dist_ba=True, f64=True),
+               dict(engine="incremental", initial_pair=(0, 1),
                     initializer="stellar", use_gps=True),
                dict(engine="global"), dict(initializer="stellar"),
                dict(f64=True), dict(engine="global", f64=True)):
-        tts.check_params(tts.TriangulationParams(**kw))
+        with pytest.raises(FileNotFoundError, match="matches"):
+            tts.run_triangulation(str(tmp_path / "missing"),
+                                  str(tmp_path / "out"), [],
+                                  np.zeros(0), np.zeros((1, 9)),
+                                  np.zeros(1), tts.TriangulationParams(**kw),
+                                  device="cpu")

@@ -13,6 +13,12 @@ Tolerances (f32 in both packages, sums in other orders):
   valid, except at plane flips (pixels where the reference's two best
   plane costs lie within 1e-5), which are counted and bounded at 1% of
   those pixels.
+* ``compute_depth_maps_sharded`` over ``[cpu] * 2`` against the
+  reference's on a 2-device mesh: per view the sweep's bounds, with the
+  plane flips bounded as the pixels where ``idepth`` differs by more than
+  1e-4 relative (<= 1% of those valid in both); against
+  ``compute_depth_maps`` when every view has its full set of sources:
+  identical.
 * ``consistency_mask``: ``accept`` identical on >= 99.5%, X within 1e-5
   relative; ``smoothed_normals`` within 1e-4 where valid.
 * ``densify_scene``: point count within 2%, symmetric chamfer distance
@@ -202,6 +208,35 @@ def test_sweep_rejects_a_chunk_that_does_not_divide(sweep_inputs):
     with pytest.raises(ValueError, match="divisible"):
         tps.sweep(T(si["ref"]), T(si["srcs"]), T(si["live"], torch.bool),
                   T(si["homos"]), T(si["idepths"]), chunk=5)
+
+
+def test_depth_maps_sharded_match_reference(small):
+    """The view-sharded sweep (5 views at 128 px, level 0, 32 planes, 3
+    sources each)."""
+    from jax.sharding import Mesh
+    import jax
+    jp = jps.PlaneSweepParams(level=0, num_planes=32, num_sources=3)
+    tp = tps.PlaneSweepParams(level=0, num_planes=32, num_sources=3)
+    want = jdrv.compute_depth_maps_sharded(
+        small["js"], small["images"], jp,
+        Mesh(np.asarray(jax.devices()[:2]), ("views",)))
+    mesh = tdrv.meshlib.make_mesh("views", ["cpu"] * 2)
+    got = tdrv.compute_depth_maps_sharded(small["ts"], small["images"], tp,
+                                          mesh)
+    one = tdrv.compute_depth_maps(small["ts"], small["images"], tp,
+                                  device="cpu")
+    assert set(got) == set(want) == set(one) and len(got) == 5
+    for v in got:
+        g, w, o = got[v], want[v], one[v]
+        assert g.sources == w.sources == o.sources and len(g.sources) == 3
+        np.testing.assert_array_equal(g.idepth, o.idepth)
+        np.testing.assert_array_equal(g.ncc, o.ncc)
+        assert (np.abs(g.ncc - w.ncc) <= 1e-4).mean() >= 0.99
+        assert (g.valid == w.valid).mean() >= 0.995 and w.valid.mean() > 0.1
+        both = g.valid & w.valid
+        rel = np.abs(g.idepth - w.idepth) / np.abs(w.idepth)
+        assert (rel[both] > 1e-4).mean() <= 0.01, (v, (rel[both] > 1e-4)
+                                                  .mean())
 
 
 @pytest.fixture(scope="module")

@@ -6,8 +6,8 @@
   interpreter.
 * Entry points run on ``cuda`` unless the caller asks for the CPU, and
   raise rather than fall back to the CPU when there is no card; so do the
-  command line's compute subcommands (``--device``), and its unported
-  ``launch`` raises naming its ROADMAP item.
+  command line's compute subcommands (``--device``), and ``launch`` of a
+  compute subcommand raises before it starts a process.
 * The CUDA kernel wrappers take the plain version only for CPU tensors;
   anything else goes to the kernel or raises.
 """
@@ -24,6 +24,7 @@ import torch
 from regard3d_tpu_torch import cli as tcli
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.ba import lm as tlm
+from regard3d_tpu_torch.ba import sharded as tsh
 from regard3d_tpu_torch.core.types import Scene
 from regard3d_tpu_torch.export import formats as tfmt
 from regard3d_tpu_torch.kernels import match as tm
@@ -127,6 +128,10 @@ def test_port_modules_load_without_jax():
             "regard3d_tpu_torch.tools.scale",
             "regard3d_tpu_torch.tools.profile_sfm",
             "regard3d_tpu_torch.tools.dense_normals"} <= set(port_modules())
+    # distribution
+    assert {"regard3d_tpu_torch.dist.mesh", "regard3d_tpu_torch.dist.launch",
+            "regard3d_tpu_torch.ba.sharded",
+            "regard3d_tpu_torch.ba.dossier"} <= set(port_modules())
 
 
 @pytest.fixture()
@@ -170,6 +175,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tlm.bundle_adjust(state, obs)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        tsh.bundle_adjust_sharded(state, obs)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         tacc.run_dataset("fountain")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tacc.run_dataset("fountain", engine="global")
@@ -192,8 +199,8 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 def test_cli_compute_subcommands_raise_without_a_card(cmd, no_card,
                                                       tmp_path):
     """(g) with no GPU and no ``--device cpu``, every compute subcommand
-    raises before it reads or writes the project; ``launch`` raises naming
-    ROADMAP item 11."""
+    raises before it reads or writes the project, and so does ``launch``
+    of it, before it starts a process."""
     proj = str(tmp_path / "proj")
     extra = ["--format", "nvm"] if cmd == "export" else []
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -201,8 +208,9 @@ def test_cli_compute_subcommands_raise_without_a_card(cmd, no_card,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tcli.main(["--device", "cuda", cmd, proj, *extra])
     assert not os.path.exists(proj)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-        tcli.main(["launch", "-n", "2", "--", cmd, proj])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(["launch", "-n", "2", "--", cmd, proj, *extra])
+    assert not os.path.exists(proj)
 
 
 def _posed_scene(n=2):

@@ -25,8 +25,8 @@ and textures) -> preview -> info. Checked:
   quick-start project and store the reference CLI's parameters;
 * ``sfm --f64`` and ``matches --detector orb|mser`` run on the quick-start
   project and store the reference CLI's parameters;
-* the unported options raise ``NotImplementedError`` naming their ROADMAP
-  item; ``retrieval_pairs`` gives the reference's pair list.
+* ``retrieval_pairs`` gives the reference's pair list (``launch``, multi-
+  process runs and ``--dist-ba``: ``tests/test_torch_multiprocess.py``).
 """
 
 import contextlib
@@ -260,22 +260,6 @@ def test_subcommands_options_and_stored_params_match_reference(argv):
     assert vt == vj
     assert tcli._params(t) == jcli._params(j)
     assert t.fn.__name__ == j.fn.__name__
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["launch", "-n", "2", "--", "info", "p"], 11),
-    (["sfm", "{p}", "--dist-ba"], 11),
-    (["info", "{p}"], 11),
-], ids=["launch", "dist_ba", "multiprocess"])
-def test_unported_options_raise_naming_their_item(qs, argv, item,
-                                                  monkeypatch):
-    if item == 11 and argv[0] == "info":
-        monkeypatch.setenv("R3D_NUM_PROCESSES", "2")
-    before = open(os.path.join(qs["proj"], "project.json")).read()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        port(*(a.replace("{p}", qs["proj"]) for a in argv))
-    after = open(os.path.join(qs["proj"], "project.json")).read()
-    assert after == before          # nothing was written
 
 
 @pytest.mark.parametrize("argv", [["--engine", "global"],
