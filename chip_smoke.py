@@ -7,9 +7,12 @@ run if it fails:
 
 (a) build the port's CUDA kernels from ``regard3d_tpu_torch/csrc`` (nvcc)
     and, beside them, its host library from ``native/r3d_native.cpp``
-    (g++), and print the card; fail unless the three modes of the bf16
-    kernel hold the same number of tensor-core instructions (HMMA) in the
-    built SASS;
+    (g++), and print the card; print each kernel instance's registers and
+    spills (ptxas ``-v``) and SASS instruction mix
+    (``tools/kernel_report``); fail unless the three modes of the bf16
+    kernel hold the same number of tensor-core instructions (HGMMA of
+    ``wgmma``) in the built SASS, above 0, for D = 144 and for D set at run
+    time, or if the f32 kernel spills;
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
@@ -28,7 +31,11 @@ run if it fails:
     K1 over the table (p, p), one launch); time kernel, plain version and
     ``torch.bmm`` /
     ``torch.mm`` of the same distance products (a yardstick only; none for
-    ``min_only``), and split
+    ``min_only``), time the block kernels' C call alone (``call_ms``:
+    operands, |b|^2 and the pair table made beforehand), record each row's
+    registers and spills from (a), hold the f32 K1 rows (here and in (k))
+    and the plain f32 version against a float64 yardstick (the plain
+    version in float64), and split
     the single-pair call's host time per call between its wrapper, its
     launch and its C call. Fails if bf16 K1 is not above the FFMA peak (it
     would not be on the tensor cores) or ``mm_only`` beats its tensor-core
@@ -289,14 +296,16 @@ def sym_epipolar_px(F, p1, p2):
 
 
 def phase_build():
-    """(a) build the kernels and the host library; then count the
-    tensor-core instructions of each mode of the bf16 kernel in the built
-    SASS: ptxas deletes an mma whose result is dead, so ``mm_only`` must
-    keep as many HMMA as ``full``, or it would time only part of the
-    product."""
+    """(a) build the kernels and the host library; print what ptxas and the
+    SASS say of each kernel instance, and count the tensor-core
+    instructions of each mode of the bf16 kernel: ptxas deletes an mma
+    whose result is dead, so ``mm_only`` must keep as many HGMMA as
+    ``full``, or it would time only part of the product. Returns ptxas's
+    usage per instance (``_build.ptxas_usage``)."""
     from regard3d_tpu_torch import native
     from regard3d_tpu_torch.kernels import _build
     from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.tools import kernel_report
     t0 = time.time()
     # nvcc and g++ side by side: the matcher's kernels and (m)'s host
     # library (built here, so no CLI process of (j) builds anything)
@@ -306,13 +315,22 @@ def phase_build():
         log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
         log(f"(a) built {os.path.basename(host.result())} from "
             f"{os.path.relpath(native.SOURCE)} in {time.time() - t0:.1f} s")
+    usage = _build.ptxas_usage(_build.build_log(lib))
+    for name, ops in sorted(_build.sass_opcodes(lib).items()):
+        log(f"(a) {name}: {usage.get(name)}; SASS "
+            f"{kernel_report.mix(ops)}")
     hmma = _build.hmma_counts(lib)
-    log(f"(a) HMMA per bf16 kernel instance (mode,D): {hmma}")
+    log(f"(a) HGMMA per bf16 kernel instance (mode,D): {hmma}")
     for dc in ("0", "144"):                  # D at run time, D = 144
         n = [hmma.get(f"{m},{dc}", 0) for m in (0, 1, 2)]
         check(n[0] == n[1] == n[2] > 0,
-              f"HMMA of full, mm_only, min_only (D={dc}; 0: set at run "
+              f"HGMMA of full, mm_only, min_only (D={dc}; 0: set at run "
               f"time): {n}")
+    f32 = usage.get("l2_top2_f32_kernel", {})
+    check(f32.get("registers", 0) > 0 and f32.get("spill_stores", 1) == 0
+          and f32.get("spill_loads", 1) == 0,
+          f"the f32 kernel spills or was not reported: {f32}")
+    return usage
 
 
 def run_stage(ds, out, detector="fast-akaze"):
@@ -506,8 +524,68 @@ def host_split(match_mod, a, b, mb, ab, bb, bf16):
     }
 
 
+# the kernel instance each row launches (ptxas's name, template arguments
+# mode,D,... of the bf16 kernel)
+ROW_KERNEL = {"l2_top2_block_f32": "l2_top2_f32_kernel",
+              "l2_top2_f32": "l2_top2_f32_kernel",
+              "l2_top2_block_bf16": "l2_top2_wgmma_kernel<0,144,",
+              "l2_top2_bf16": "l2_top2_wgmma_kernel<0,144,",
+              "l2_top2_block_mm_only_bf16": "l2_top2_wgmma_kernel<1,144,",
+              "l2_top2_block_min_only_bf16": "l2_top2_wgmma_kernel<2,144,"}
+
+
+def row_usage(usage, name):
+    """Registers and spilled bytes (stores + loads) of the instance the
+    row ``name`` launches, from phase (a)'s ptxas report."""
+    u = next(v for k, v in usage.items() if k.startswith(ROW_KERNEL[name]))
+    return u["registers"], u["spill_stores"] + u["spill_loads"]
+
+
+def call_ms(desc, mask, parr, bf16, mode=0):
+    """The block kernel's C call alone, on operands, |b|^2, pair table and
+    outputs made beforehand (what the wrapper adds is not in it)."""
+    from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.tools import kernel_report
+    run, _ = kernel_report.c_call(match_mod._lib(), desc, mask, parr, bf16,
+                                  mode)
+    check(run() == 0, "the block kernel's C call failed")
+    return cuda_ms(run, reps=20)
+
+
+def f64_errors(got, desc, mask, parr, chunk=4):
+    """K1 f32's (d1, d2) and the plain f32 version's against the float64
+    yardstick: the plain version's arithmetic in float64 on the same
+    descriptors. Returns (kernel, plain) largest absolute errors over the
+    finite entries; the kernel must stay within the f32 rows' tolerance."""
+    from regard3d_tpu_torch.kernels import match as match_mod
+    plain = match_mod.l2_top2_block_plain(desc, mask, parr)
+    pl = parr.long().to(desc.device)
+    d64 = desc.double()
+    bn = torch.where(mask, (d64 ** 2).sum(-1), match_mod._BIG)
+    want = []
+    for pr in pl.split(chunk):
+        a, b, bb = d64[pr[:, 0]], d64[pr[:, 1]], bn[pr[:, 1]]
+        d = torch.clamp_min((a * a).sum(-1, keepdim=True) + bb[:, None]
+                            - 2.0 * (a @ b.transpose(1, 2)), 0.0)
+        d = torch.where((bb < match_mod._BIG)[:, None], d, match_mod._BIG)
+        vals, _ = match_mod.top2_ref(d)
+        want.append(vals)
+    want = torch.cat(want)
+    errs = []
+    for out in (got, plain):
+        e = 0.0
+        for k in (0, 1):
+            w, g = want[..., k], out[2 * k].double()
+            fin = w < 1e30
+            check(bool(((g - w).abs() <= 1e-5 * w.abs() + 1e-5)[fin].all()),
+                  "K1 f32 outside rtol/atol 1e-5 of the float64 yardstick")
+            e = max(e, float((g - w).abs()[fin].max()))
+        errs.append(e)
+    return errs[0], errs[1]
+
+
 def kernel_row(name, run, plain, lib, P, M, N, D, in_bytes, out_words,
-               bf16, replaces, compare, tag="(c)"):
+               bf16, replaces, compare, usage, tag="(c)"):
     """One kernel against its plain version on the same inputs, timed
     beside its bound, its plain version and a library call: the row of the
     ``kernels`` line (``launches`` filled in by the caller)."""
@@ -533,6 +611,7 @@ def kernel_row(name, run, plain, lib, P, M, N, D, in_bytes, out_words,
                   "dtype": "bfloat16" if bf16 else "float32"},
         "tflops": flops / (ms * 1e-3) / 1e12,
     }
+    row["regs"], row["spills"] = row_usage(usage, name)
     lib_s = f"{lib_ms:.3f} ms" if lib_ms is not None else "none"
     log(f"{tag} {name} (P={P} M={M} N={N}): {ms:.4f} ms (plain "
         f"{plain_ms:.3f} ms, library {lib_s}, bound {row['bound_ms']:.4f} "
@@ -540,9 +619,10 @@ def kernel_row(name, run, plain, lib, P, M, N, D, in_bytes, out_words,
     return row
 
 
-def phase_kernels(desc, mask, parr):
+def phase_kernels(desc, mask, parr, usage):
     """(c) every kernel against its plain version at the main paths'
-    shapes, timed beside its bound, its plain version and a library call."""
+    shapes, timed beside its bound, its plain version and a library call;
+    the block kernels' C call alone; K1 f32 against float64."""
     from regard3d_tpu_torch.kernels import match as match_mod
 
     B, N, D = desc.shape
@@ -553,7 +633,7 @@ def phase_kernels(desc, mask, parr):
 
     def entry(name, M, Nn, **kw):
         Pn = P if name.startswith("l2_top2_block") else 1
-        rows.append(kernel_row(name, P=Pn, M=M, N=Nn, D=D, **kw))
+        rows.append(kernel_row(name, P=Pn, M=M, N=Nn, D=D, usage=usage, **kw))
         return rows[-1]
 
     # (rtol, atol) of d1/d2: both sides sum exact products in f32 in other
@@ -574,6 +654,16 @@ def phase_kernels(desc, mask, parr):
                     lib=lambda ga=ga, gb=gb: torch.bmm(ga, gb.transpose(1, 2)),
                     M=N, Nn=N, in_bytes=dbytes, out_words=3, bf16=bf16,
                     replaces=K1, compare=top2(bf16))
+        row["call_ms"] = call_ms(desc, mask, parr, bf16)
+        if not bf16:
+            row["f64_max_abs_err"], row["plain_f64_max_abs_err"] = \
+                f64_errors(match_mod.l2_top2_block(desc, mask, parr), desc,
+                           mask, parr)
+            log(f"(c) {row['name']} against float64: kernel "
+                f"{row['f64_max_abs_err']:.3e}, plain f32 "
+                f"{row['plain_f64_max_abs_err']:.3e}")
+        log(f"(c) {row['name']}: C call {row['call_ms']:.4f} ms, "
+            f"{row['regs']} registers, {row['spills']} spilled bytes")
         if bf16:
             check(row["tflops"] * 1e12 > PEAK_F32_FLOPS,
                   f"K1 bf16 at {row['tflops']:.1f} TFLOP/s is not above the "
@@ -614,6 +704,8 @@ def phase_kernels(desc, mask, parr):
                     M=N, Nn=N, in_bytes=dbytes, out_words=1,
                     bf16=True, replaces=K3,
                     compare=lambda n, g, w: _close(n, g, w, 1e-5, 1e-5))
+        row["call_ms"] = call_ms(desc, mask, parr, True,
+                                 1 + match_mod.ABLATIONS.index(mode))
         if mode == "mm_only":
             # catches only a product removed almost entirely: one that keeps
             # part of its mma still runs above the bound. Phase (a)'s HMMA
@@ -1286,10 +1378,11 @@ def phase_scale(render, wd):
     return launches["l2_top2_block_f32"], os.path.join(wd, "matches")
 
 
-def phase_scale_kernel(matches):
+def phase_scale_kernel(matches, usage):
     """(k) K1 f32 at the scale path's shape (the first 64 window pairs of
     the 200 views, 1024 keypoints padded to 1024), against its plain
-    version, timed beside its bound and ``torch.bmm``."""
+    version and float64, timed beside its bound and ``torch.bmm``, and its
+    C call alone."""
     from regard3d_tpu_torch.ingest import synth
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline import features as fm
@@ -1302,7 +1395,7 @@ def phase_scale_kernel(matches):
     pl = parr.long().cuda()
     B, N, D = desc.shape
     ga, gb = desc[pl[:, 0]], desc[pl[:, 1]]
-    return kernel_row(
+    row = kernel_row(
         "l2_top2_block_f32",
         run=lambda: match_mod.l2_top2_block(desc, mask, parr),
         plain=lambda: match_mod.l2_top2_block_plain(desc, mask, parr),
@@ -1311,7 +1404,15 @@ def phase_scale_kernel(matches):
         in_bytes=(len(torch.unique(pl)) * (N * D * 4 + N)
                   + PAIR_BLOCK * 8),
         out_words=3, bf16=False, replaces=K1,
-        compare=lambda n, g, w: _compare(n, g, w, 1e-5, 1e-5), tag="(k)")
+        compare=lambda n, g, w: _compare(n, g, w, 1e-5, 1e-5), usage=usage,
+        tag="(k)")
+    row["call_ms"] = call_ms(desc, mask, parr, False)
+    row["f64_max_abs_err"], row["plain_f64_max_abs_err"] = f64_errors(
+        match_mod.l2_top2_block(desc, mask, parr), desc, mask, parr)
+    log(f"(k) K1 f32: C call {row['call_ms']:.4f} ms; against float64: "
+        f"kernel {row['f64_max_abs_err']:.3e}, plain f32 "
+        f"{row['plain_f64_max_abs_err']:.3e}")
+    return row
 
 
 def dense_geometry(scene, Cs_true, xyz, nrm, verts=None):
@@ -2048,7 +2149,7 @@ def phase_accuracy():
     check(not bad, "; ".join(bad))
 
 
-def run_phases(ds, work, render, scale_wd, stamp):
+def run_phases(ds, work, render, scale_wd, stamp, usage):
     """Phases (j) to (k) in order, in the work directory; returns the rows
     of the ``kernels`` line with their launch counts."""
     from regard3d_tpu_torch.pipeline import compute_matches as cm
@@ -2064,7 +2165,7 @@ def run_phases(ds, work, render, scale_wd, stamp):
     pairs = cm.exhaustive_pairs(N_CAMS)
     pairs = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
     parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
-    rows = phase_kernels(descs.data, descs.mask, parr)
+    rows = phase_kernels(descs.data, descs.mask, parr, usage)
     phase_ties(descs.data)
     phase_wide(descs.data, descs.mask, parr)
     stamp("(c)")
@@ -2090,7 +2191,7 @@ def run_phases(ds, work, render, scale_wd, stamp):
     phase_dense(ds, os.path.join(work, "sfm", "scene.npz"), work)
     stamp("(i)")
     k1_scale, scale_matches = phase_scale(render, scale_wd)
-    scale_row = phase_scale_kernel(scale_matches)
+    scale_row = phase_scale_kernel(scale_matches, usage)
     stamp("(k)")
     for row in rows:
         row["launches"] = paths[ROW_PATH[row["name"]]][row["name"]]
@@ -2101,7 +2202,8 @@ def run_phases(ds, work, render, scale_wd, stamp):
     k1_f32["launches_ranks"] = k1_ranks   # (n)'s two ranks
     k1_f32["scale"] = {k: scale_row[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms", "shape", "tflops")}
+        "library_ms", "shape", "tflops", "call_ms", "regs", "spills",
+        "f64_max_abs_err", "plain_f64_max_abs_err")}
     return rows
 
 
@@ -2121,7 +2223,7 @@ def main():
         last[0] = now
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, cuda {torch.version.cuda}")
-    phase_build()
+    usage = phase_build()
     from regard3d_tpu_torch.ingest import synth
     t1 = time.time()
     ds = synth.make_dataset("fountain", n_cams=N_CAMS, hw=HW, seed=0)
@@ -2131,7 +2233,7 @@ def main():
             os.path.abspath(__file__))) as work:
         render, scale_wd = start_render(work)
         try:
-            rows = run_phases(ds, work, render, scale_wd, stamp)
+            rows = run_phases(ds, work, render, scale_wd, stamp, usage)
         finally:
             if render.poll() is None:
                 render.kill()

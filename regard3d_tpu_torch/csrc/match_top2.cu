@@ -20,7 +20,8 @@
 // once at the end from the values the product saw, the sum clamped at 0.
 // Ties go to the lowest column (lax.top_k / argmin semantics); an equal
 // second value gives d2 == d1. Ragged M and N are masked in the kernel
-// (rows of A and B past the end are zero-filled, their |b|^2 is 3e38).
+// (rows of A and B past the end are zero-filled by TMA, their |b|^2 is
+// 3e38).
 //
 // MM_ONLY: out[p, r] = min(3e38, min over column tiles t of a_r . b_{t*TN}),
 // the first column of every 128-wide tile, no |b|^2, no mask. MIN_ONLY:
@@ -29,36 +30,54 @@
 //
 // What bounds each case on an H100 SXM: 2 * P * M * N * D operations;
 // the bytes (B * N * D inputs, 3 * P * M outputs) are small next to them.
+// Both kernels are warp-specialised for Hopper: a block of 384 threads is
+// one producer warpgroup, whose first warp keeps TMA loads
+// (cp.async.bulk.tensor) in flight into a ring of shared-memory stages
+// guarded by mbarriers (full: the bytes landed; empty: every consumer warp
+// is done with the stage), and two consumer warpgroups. The producer gives
+// its registers to the consumers (setmaxnreg 40 / 232); its other three
+// warps sum |a|^2 of the block's rows while the consumers work. Rows of A
+// and B are k-contiguous in shared memory as TMA lands them, from a tensor
+// map over (images, rows, D) with a 128-row box; one block per SM.
 //   * bf16 (K1 ANN presets, K3): the tensor cores, 989 TFLOP/s dense. The
-//     design: mma.sync.m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix;
-//     a 128 x 128 block tile, 8 warps of 64 x 32; the block's A tile
-//     (128 x D) stays resident in shared memory for its whole column loop,
-//     B tiles and their |b|^2 stream through a two-stage cp.async ring.
-//     Rows are XOR-swizzled in 16-byte chunks, so ldmatrix has no bank
-//     conflicts without padding, and at D = 144 two blocks fit on an SM
-//     (3 x 36 KB). The top-2 merge runs on the accumulator fragments: a lane
-//     owns rows lane/4 and lane/4 + 8 of each m16 tile and columns
-//     2 (lane % 4) + {0, 1} of each n8 tile, visited in increasing order
-//     with a strict '<'. Instruction issue and latency, not the tensor
-//     cores, hold it back: on an H100 SXM (NVIDIA H100 80GB HBM3, 700 W) at
-//     P = 64, N = 4096, D = 144, MM_ONLY takes 0.96-1.01 ms (313-321
-//     TFLOP/s, a third of the peak) and FULL 1.34-1.37 ms (chip_smoke.py;
-//     PERF.md).
-//     The product stays live in MM_ONLY although its epilogue reads one
-//     column per tile: `asm volatile` binds only the front end, and ptxas
-//     deletes an mma whose result is dead, so MM_ONLY
-//     also reads every accumulator under a branch on a kernel argument that
-//     is 0 at run time. chip_smoke.py counts the HMMA of each mode in the
-//     SASS. A compile-time D = 144 (LIOP) folds the swizzle into constants
-//     and unrolls the k loop. wgmma + TMA is later work.
+//     block's 128-row A tile stays resident; 128 x 128 B tiles and their
+//     |b|^2 stream through a four-stage ring. D = 144 is 288 bytes a row
+//     and the 128-byte swizzle takes at most 64 bf16, so a tile is two
+//     64-wide boxes under the 128-byte swizzle and one 16-wide box under
+//     the 32-byte swizzle, each with its own wgmma descriptor: 36 KB a
+//     tile, where three zero-filled 64-wide boxes would take 48 KB and
+//     leave room for three stages. Each consumer warpgroup owns 64 rows and
+//     runs wgmma.mma_async m64n128k16 (A and B from shared memory) into two
+//     accumulator sets in turn: the wgmma of tile t+1 is in flight while
+//     the warpgroup runs the top-2 of tile t on its fragments (rows
+//     lane/4 and lane/4 + 8 of its warp's 16, columns 8j + 2 (lane % 4) +
+//     {0, 1}, visited in increasing order with a strict '<'). Every wgmma
+//     issue is unconditional in the loop body, so ptxas can tell which
+//     accumulator set a wait retires and injects no wait of its own (it
+//     did when the issue sat under a branch: the merge then ran after the
+//     product, not beside it). The top-2's ALU work (~5 FMNMX/FSETP/SEL a
+//     distance) now bounds FULL; a vote-and-skip epilogue and a ballot of
+//     the column groups to visit were both slower, and five stages or a
+//     240/24 register split were no faster (tools/kernel_report.py;
+//     PERF.md). The product stays live in MM_ONLY although its epilogue
+//     reads one column per tile: ptxas deletes an mma whose result is
+//     dead, so MM_ONLY also reads every accumulator under a branch on a
+//     kernel argument that is 0 at run time; chip_smoke.py counts the
+//     HGMMA of each mode in the SASS. A compile-time D = 144 (LIOP) unrolls
+//     the k loop; D at run time (up to 288) takes a two-stage ring.
 //   * f32 (the stage's default, K2): FP32 FFMA, 67 TFLOP/s; no TF32, so the
-//     result matches Precision.HIGHEST up to summation order. The design:
-//     a 128 x 128 block tile, an 8 x 8 register micro-tile per thread (two
-//     4-wide groups 64 apart, so shared-memory reads are conflict-free),
-//     16-deep k slices staged transposed by 4-byte cp.async into a
-//     double-buffered ring; 64 FFMA per four 16-byte shared loads. The
-//     source pointers and A's row masks are fixed per block and the k
-//     slices advance by counters, so the loop does no integer division.
+//     result matches Precision.HIGHEST up to summation order. A stage holds
+//     one 32-deep k slice (128 bytes a row, 128-byte swizzle, the last one
+//     zero-filled past D by TMA) of the A tile and of two B tiles: consumer
+//     warpgroup w takes column tile 2s + w of step s, so one block per SM
+//     walks its columns two tiles at a time, and a 768-column call (384
+//     blocks) runs in under three even waves where two blocks per SM left
+//     a 1.45-wave tail. A thread owns an 8 x 16 micro-tile (rows rg + 4i,
+//     columns cg + 8j of its warp's 32 x 128, lane = 8 rg + cg), read as
+//     float4 along k from the swizzled rows without bank conflicts: 512
+//     FFMA per 24 shared loads, the 128 accumulators in the consumers' 232
+//     registers without spills. The two warpgroups' top-2 meet in shared
+//     memory at the end.
 //   * Small grids (K2: 4000 rows make 32 row tiles for 132 SMs): the
 //     columns are split into S ranges, blockIdx.z picks one; each block
 //     writes a partial (d1, i1, d2) into caller-allocated scratch and a
@@ -66,7 +85,14 @@
 //     index-aware tie rule (an exact tie across ranges keeps the lower
 //     column and gives d2 == d1). Both dtypes; FULL mode only (the K3 modes
 //     time K1's grid, which needs no split).
+// The tensor maps are encoded on the host for every call
+// (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
+// so the library needs no -lcuda) and passed as __grid_constant__
+// parameters. The caller does not pass the image counts, so a map's image
+// extent is 2^31: TMA bounds the rows and columns, the caller the pair
+// indices.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -77,12 +103,18 @@ namespace {
 
 constexpr int TM = 128;       // rows of A per block
 constexpr int TN = 128;       // columns (rows of B) per tile
-constexpr int THREADS = 256;
-constexpr int KT = 16;        // depth of one f32 k slice
-constexpr int FPAD = 4;       // f32 staging row padding (keeps 16 B alignment)
+constexpr int THREADS = 384;  // one producer and two consumer warpgroups
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BF16_STAGES_144 = 4;  // ring depth at D = 144
+constexpr int BF16_STAGES_RT = 2;   // ring depth with D at run time
+constexpr int F32_STAGES = 4;
+constexpr int F32_KS = 32;          // depth of one f32 k slice (128 bytes)
+constexpr int F32_SLICE = TM * F32_KS * 4;  // bytes of one tile's slice
 constexpr float BIG = 3.0e38f;
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int MAX_DEVICES = 64;   // devices whose kernel attributes are cached
+constexpr unsigned IMAGES = 1u << 31;  // image extent of a tensor map
 
 enum Mode { FULL = 0, MM_ONLY = 1, MIN_ONLY = 2 };
 
@@ -133,485 +165,628 @@ __device__ __forceinline__ void store_top2(long long o, long long PM,
 }
 
 // ---------------------------------------------------------------------------
-// PTX wrappers
+// PTX wrappers: mbarriers, TMA, wgmma, register hand-over
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16-byte async copy; pred == false zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(pred ? 4 : 0));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// arrive and announce `bytes` of TMA traffic that complete the phase
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// announce `bytes` of TMA traffic that complete the phase, without arriving
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one box of a 3-D tensor map (k, row, image) into shared memory at dst
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int k, int row,
+                                         int img) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(k), "r"(row),
+      "r"(img)
+      : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void regs_release() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void regs_claim() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// barrier `id` over the `n` threads of the consumer warpgroups
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0,
-                                        uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+// pins the accumulators: reads after a wgmma_wait stay after it
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// shared-memory matrix descriptor of a K-major operand: start address,
+// stride between 8-row groups (sbo bytes), swizzle (1 = 128 B, 3 = 32 B);
+// the leading offset is unused by swizzled K-major layouts
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
+                                              uint32_t swizzle) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)swizzle << 62);
 }
+
+#define R4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define R16(i) R4(i), R4(i + 4), R4(i + 8), R4(i + 12)
+
+// d (64 x 128, f32) = or += A (64 x 16, bf16) * B^T (128 x 16, bf16), both
+// K-major in shared memory; scale_d == 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : R16(0), R16(16), R16(32), R16(48)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+#undef R16
+#undef R4
 
 // ---------------------------------------------------------------------------
 // bf16 tensor-core kernel (K1 bf16, K2 bf16, K3)
 // ---------------------------------------------------------------------------
 
-// Shared-memory tiles hold rows of s = D / 8 chunks of 16 bytes. Chunk c of
-// row r lives at chunk c ^ f(r) of that row: the 8 row addresses of one
-// ldmatrix (same c, 8 consecutive rows) then fall into 8 distinct groups of
-// four banks. With a row stride of s chunks, rows q apart share a bank group
-// when q * s = 0 mod 8 (q = 8 / gcd(s, 8)), and f(r) = (r / q) mod (8 / q)
-// separates them; c ^ f(r) stays inside the row because s is a multiple of
-// 8 / q.
-struct Swizzle {
-  int s, shift, mask;
-  __device__ __forceinline__ explicit Swizzle(int D) : s(D >> 3) {
-    shift = (s & 7) == 0 ? 0 : ((s & 3) == 0 ? 1 : 2);
-    mask = (8 >> shift) - 1;
+// A tile of 128 rows x D bf16 in shared memory: D / 64 regions of 64
+// columns (128-byte rows, 128B swizzle, 16 KB) and then (D % 64) / 16
+// regions of 16 columns (32-byte rows, 32B swizzle, 4 KB); 256 D bytes.
+struct Bf16Tile {
+  int q, r, nk, bytes;
+  __device__ __forceinline__ explicit Bf16Tile(int D)
+      : q(D >> 6), r((D & 63) >> 4), nk(D >> 4), bytes(TM * D * 2) {}
+  // descriptor of k step s (16 columns) for the 64 rows from row0 of the
+  // tile at `base`
+  __device__ __forceinline__ uint64_t desc(uint32_t base, int s,
+                                           int row0) const {
+    if (s < 4 * q)
+      return smem_desc(base + (s >> 2) * 16384 + row0 * 128 + (s & 3) * 32,
+                       1024, 1);
+    return smem_desc(base + q * 16384 + (s - 4 * q) * 4096 + row0 * 32, 256,
+                     3);
   }
-  __device__ __forceinline__ int operator()(int r, int c) const {
-    return (r * s + (c ^ ((r >> shift) & mask))) << 4;
+  // the boxes of rows row0.. of image img, from the two maps
+  __device__ __forceinline__ void load(uint32_t base, const CUtensorMap* m128,
+                                       const CUtensorMap* m32, uint32_t bar,
+                                       int row0, int img) const {
+    for (int c = 0; c < q; ++c)
+      tma_load(base + c * 16384, m128, bar, 64 * c, row0, img);
+    for (int c = 0; c < r; ++c)
+      tma_load(base + q * 16384 + c * 4096, m32, bar, 64 * q + 16 * c, row0,
+               img);
   }
 };
 
-__device__ __forceinline__ void load_rows_bf16(unsigned char* tile,
-                                               const __nv_bfloat16* src,
-                                               int row0, int rows, int D,
-                                               const Swizzle& sw) {
-  const int n = TM * sw.s;
-  for (int idx = threadIdx.x; idx < n; idx += THREADS) {
-    const int r = idx / sw.s;
-    const int c = idx - r * sw.s;
-    const bool ok = row0 + r < rows;
-    const __nv_bfloat16* g = ok ? src + (long long)(row0 + r) * D + c * 8
-                                : src;
-    cp_async16(tile + sw(r, c), g, ok);
+// the product of one column tile into acc: nk wgmma k steps, one group
+template <int DC>
+__device__ __forceinline__ void mma_tile(float (&acc)[64], const Bf16Tile& tl,
+                                         uint32_t a_base, uint32_t b_base,
+                                         int arow0) {
+  wgmma_fence();
+  if (DC > 0) {
+#pragma unroll
+    for (int s = 0; s < DC / 16; ++s)
+      wgmma_m64n128(acc, tl.desc(a_base, s, arow0), tl.desc(b_base, s, 0),
+                    s > 0);
+  } else {
+    for (int s = 0; s < tl.nk; ++s)
+      wgmma_m64n128(acc, tl.desc(a_base, s, arow0), tl.desc(b_base, s, 0),
+                    s > 0);
+  }
+  wgmma_commit();
+}
+
+// the top-2 (or an ablation) of one column tile on the fragments:
+// acc[4j + 2h + e] is row g + 8h of the warp's 16, column 8j + 2t + e
+template <int MODE>
+__device__ __forceinline__ void epilogue(const float (&acc)[64],
+                                         const float* bns, int col0, int t,
+                                         float (&d1)[2], int (&i1)[2],
+                                         float (&d2)[2], int keep_live) {
+  if (MODE == MM_ONLY) {
+    if (t == 0) {
+      d1[0] = fminf(d1[0], acc[0]);
+      d1[1] = fminf(d1[1], acc[2]);
+    }
+    // ptxas deletes an mma whose result is never read, `asm volatile` or
+    // not; every accumulator is read under a branch on an argument that
+    // is 0 at run time, so the whole product stays
+    if (keep_live) {
+#pragma unroll
+      for (int q = 0; q < 64; ++q)
+        d1[(q >> 1) & 1] = fminf(d1[(q >> 1) & 1], acc[q]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 16 && MODE != MM_ONLY; ++j) {
+    const float2 bn = *reinterpret_cast<const float2*>(bns + 8 * j + 2 * t);
+    const int c = col0 + 8 * j + 2 * t;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float v0 = fmaf(-2.f, acc[4 * j + 2 * h], bn.x);
+      const float v1 = fmaf(-2.f, acc[4 * j + 2 * h + 1], bn.y);
+      if (MODE == MIN_ONLY) {
+        d1[h] = fminf(d1[h], fminf(v0, v1));
+      } else {
+        push(v0, c, d1[h], i1[h], d2[h]);
+        push(v1, c + 1, d1[h], i1[h], d2[h]);
+      }
+    }
   }
 }
 
-// DC > 0 fixes D at compile time (LIOP's 144): the swizzle folds into
-// constants and the k loop unrolls fully; DC = 0 takes D at run time.
-template <int MODE, int DC>
-__global__ void __launch_bounds__(THREADS, 2)
-l2_top2_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                   const __nv_bfloat16* __restrict__ B,
-                   const float* __restrict__ bnorm,
-                   const int* __restrict__ pairs, int M, int N, int Drt,
-                   int tiles_per_split, float* __restrict__ out_d1,
-                   int* __restrict__ out_i1, float* __restrict__ out_d2,
-                   float* __restrict__ part, int keep_live) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// one step of a consumer warpgroup: the tile in acc (ring slot i) is in
+// flight; unless it is the last, start tile + 1 into other; wait for acc,
+// merge it, free its slot. Every issue is unconditional, so ptxas can tell
+// which accumulator set a wait retires.
+template <int MODE, int DC, int STAGES, bool LAST>
+__device__ __forceinline__ void consume(
+    float (&acc)[64], float (&other)[64], const Bf16Tile& tl, int tile, int i,
+    uint32_t a_base, uint32_t b_base, uint32_t bars, const float* bns,
+    int arow0, int t, int lane, float (&d1)[2], int (&i1)[2], float (&d2)[2],
+    int keep_live) {
+  if (!LAST) {
+    const int sn = (i + 1) % STAGES;
+    mbar_wait(bars + 8 * sn, ((i + 1) / STAGES) & 1);
+    mma_tile<DC>(other, tl, a_base, b_base + sn * tl.bytes, arow0);
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_acc(acc);
+  const int s = i % STAGES;
+  epilogue<MODE>(acc, bns + s * TN, tile * TN, t, d1, i1, d2, keep_live);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));
+}
+
+// DC > 0 fixes D at compile time (LIOP's 144) and unrolls the k loop;
+// DC = 0 takes D at run time. STAGES: depth of the B ring.
+template <int MODE, int DC, int STAGES>
+__global__ void __launch_bounds__(THREADS, 1)
+l2_top2_wgmma_kernel(__grid_constant__ const CUtensorMap a128,
+                     __grid_constant__ const CUtensorMap a32,
+                     __grid_constant__ const CUtensorMap b128,
+                     __grid_constant__ const CUtensorMap b32,
+                     const __nv_bfloat16* __restrict__ A,
+                     const float* __restrict__ bnorm,
+                     const int* __restrict__ pairs, int M, int N, int Drt,
+                     int tiles_per_split, float* __restrict__ out_d1,
+                     int* __restrict__ out_i1, float* __restrict__ out_d2,
+                     float* __restrict__ part, int keep_live) {
+  extern __shared__ unsigned char smem_raw[];
   const int D = DC > 0 ? DC : Drt;
-  const Swizzle sw(D);
-  const int tile_bytes = TM * sw.s * 16;
-  unsigned char* As = smem;
-  unsigned char* Bs = smem + tile_bytes;                // 2 stages
-  float* bns = reinterpret_cast<float*>(smem + 3 * tile_bytes);  // [2][TN]
+  const Bf16Tile tl(D);
+  // 1024-byte alignment for the 128B swizzle's pattern
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t a_base = smem_u32(smem);
+  const uint32_t b_base = a_base + tl.bytes;                 // [STAGES]
+  float* bns = reinterpret_cast<float*>(smem + (1 + STAGES) * tl.bytes);
+  float* ans = bns + STAGES * TN;                            // [TM] |a|^2
+  const uint32_t bars = smem_u32(ans + TM);
+  // full[s] at bars + 8 s, empty[s] at bars + 8 (STAGES + s), then the A
+  // tile's and |a|^2's
+  const uint32_t a_full = bars + 16 * STAGES;
+  const uint32_t an_full = a_full + 8;
 
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * TM;
-  const long long ia = pairs[2 * p];
-  const long long ib = pairs[2 * p + 1];
-  const __nv_bfloat16* Ab = A + ia * (long long)M * D;
-  const __nv_bfloat16* Bb = B + ib * (long long)N * D;
-  const float* bn = bnorm + ib * (long long)N;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int wm = warp >> 2;   // rows wm*64 .. +64
-  const int wn = warp & 3;    // columns wn*32 .. +32
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
+  const int ia = pairs[2 * p];
+  const int ib = pairs[2 * p + 1];
   const int ntiles = (N + TN - 1) / TN;
   const int t0 = blockIdx.z * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, ntiles);
+  const int n = min(t0 + tiles_per_split, ntiles) - t0;   // tiles of the range
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  auto load_b = [&](int tile, int st) {
-    load_rows_bf16(Bs + st * tile_bytes, Bb, tile * TN, N, D, sw);
-    if (tid < TN) {
-      const int c = tile * TN + tid;
-      if (c < N) cp_async4(&bns[st * TN + tid], bn + c, true);
-      else bns[st * TN + tid] = BIG;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 32);                 // the producer warp
+      mbar_init(bars + 8 * (STAGES + s), 8);       // the consumer warps
     }
-  };
+    mbar_init(a_full, 1);
+    mbar_init(an_full, 96);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  load_rows_bf16(As, Ab, row0, M, D, sw);
-  if (t0 < t1) load_b(t0, 0);
-  cp_commit();
-  if (t0 + 1 < t1) load_b(t0 + 1, 1);
-  cp_commit();
-
-  // running state of the 8 rows this lane owns: [m16 tile][upper/lower 8]
-  float run_d1[4][2], run_d2[4][2];
-  int run_i1[4][2];
+  if (warp < 4) {
+    // producer warpgroup: its first warp loads the tiles through TMA and
+    // |b|^2 (3e38 past N) through its registers, a tile ahead; the other
+    // three take |a|^2 of the A tile's rows from the bf16 values the
+    // product sees, in increasing k
+    regs_release<PRODUCER_REGS>();
+    if (warp != 0) {
+      if (MODE == FULL) {
+        for (int x = threadIdx.x - 32; x < TM; x += 96) {
+          const int r = row0 + x;
+          float an = 0.f;
+          if (r < M) {
+            const uint4* arow = reinterpret_cast<const uint4*>(
+                A + ((long long)ia * M + r) * D);
+            for (int c = 0; c < D / 8; ++c) {
+              const uint4 v = __ldg(arow + c);
+              const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      run_d1[mt][h] = BIG;
-      run_d2[mt][h] = BIG;
-      run_i1[mt][h] = 0;
-    }
-
-  const uint32_t a_base = smem_u32(As);
-  const int nk = D >> 4;
-  for (int tile = t0; tile < t1; ++tile) {
-    const int st = (tile - t0) & 1;
-    cp_wait<1>();
-    __syncthreads();
-    const uint32_t b_base = smem_u32(Bs + st * tile_bytes);
-
-    float acc[4][4][4];
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mt][nt][q] = 0.f;
-
-#pragma unroll
-    for (int ks = 0; ks < nk; ++ks) {
-      uint32_t bf[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int mat = lane >> 3;
-        const int n = wn * 32 + np * 16 + (mat >> 1) * 8 + (lane & 7);
-        ldsm_x4(b_base + sw(n, 2 * ks + (mat & 1)), bf[2 * np][0],
-                bf[2 * np][1], bf[2 * np + 1][0], bf[2 * np + 1][1]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + (lane & 15);
-        uint32_t af[4];
-        ldsm_x4(a_base + sw(r, 2 * ks + (lane >> 4)), af[0], af[1], af[2],
-                af[3]);
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[mt][nt], af, bf[nt][0], bf[nt][1]);
-      }
-    }
-
-    // epilogue on the fragments: acc[mt][nt][2h + j] is row
-    // wm*64 + mt*16 + g + 8h, column wn*32 + nt*8 + 2t + j of the tile
-    const int col0 = tile * TN;
-    if (MODE == MM_ONLY) {
-      if (wn == 0 && t == 0) {
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            run_d1[mt][h] = fminf(run_d1[mt][h], acc[mt][0][2 * h]);
-      }
-      // ptxas deletes an mma whose result is never read, `asm volatile` or
-      // not; every accumulator is read under a branch on an argument that
-      // is 0 at run time, so the whole product stays
-      if (keep_live) {
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int q = 0; q < 4; ++q)
-              run_d1[mt][q >> 1] = fminf(run_d1[mt][q >> 1], acc[mt][nt][q]);
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int cl = wn * 32 + nt * 8 + 2 * t + j;
-          const float bnv = bns[st * TN + cl];
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float v = fmaf(-2.f, acc[mt][nt][2 * h + j], bnv);
-              if (MODE == MIN_ONLY)
-                run_d1[mt][h] = fminf(run_d1[mt][h], v);
-              else
-                push(v, col0 + cl, run_d1[mt][h], run_i1[mt][h],
-                     run_d2[mt][h]);
+              for (int u = 0; u < 4; ++u) {
+                const float2 f = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&w4[u]));
+                an = fmaf(f.x, f.x, an);
+                an = fmaf(f.y, f.y, an);
+              }
             }
+          }
+          ans[x] = an;
         }
-    }
-    __syncthreads();
-    if (tile + 2 < t1) load_b(tile + 2, st);
-    cp_commit();
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  // merge the 4 lanes of a quad (same rows, other columns)
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int off = 1; off < 4; off <<= 1) {
-        const float od1 = __shfl_xor_sync(0xffffffffu, run_d1[mt][h], off);
-        if (MODE == FULL) {
-          const int oi1 = __shfl_xor_sync(0xffffffffu, run_i1[mt][h], off);
-          const float od2 = __shfl_xor_sync(0xffffffffu, run_d2[mt][h], off);
-          merge(run_d1[mt][h], run_i1[mt][h], run_d2[mt][h], od1, oi1, od2);
-        } else {
-          run_d1[mt][h] = fminf(run_d1[mt][h], od1);
-        }
+        mbar_arrive(an_full);
       }
-
-  // then the 4 warps that share rows, through shared memory (the B ring is
-  // free now; the A tile stays for |a|^2)
-  float* red_d1 = reinterpret_cast<float*>(Bs);     // [4][TM]
-  int* red_i1 = reinterpret_cast<int*>(red_d1 + 4 * TM);
-  float* red_d2 = red_d1 + 8 * TM;
-  if (t == 0) {
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wm * 64 + mt * 16 + g + 8 * h;
-        red_d1[wn * TM + rl] = run_d1[mt][h];
-        red_i1[wn * TM + rl] = run_i1[mt][h];
-        red_d2[wn * TM + rl] = run_d2[mt][h];
-      }
-  }
-  __syncthreads();
-
-  if (tid < TM && row0 + tid < M) {
-    const int r = row0 + tid;
-    const long long o = (long long)p * M + r;
-    float d1 = red_d1[tid];
-    int i1 = red_i1[tid];
-    float d2 = red_d2[tid];
-    for (int w = 1; w < 4; ++w) {
-      if (MODE == FULL)
-        merge(d1, i1, d2, red_d1[w * TM + tid], red_i1[w * TM + tid],
-              red_d2[w * TM + tid]);
-      else
-        d1 = fminf(d1, red_d1[w * TM + tid]);
-    }
-    if (MODE != FULL) {
-      out_d1[o] = d1;
       return;
     }
-    // |a|^2 from the bf16 values the product saw, in increasing k
-    float an = 0.f;
-    for (int c = 0; c < sw.s; ++c) {
-      const uint4 x = *reinterpret_cast<const uint4*>(As + sw(tid, c));
-      const uint32_t w4[4] = {x.x, x.y, x.z, x.w};
+    if (lane == 0) {
+      mbar_arrive_tx(a_full, tl.bytes);
+      tl.load(a_base, &a128, &a32, a_full, row0, ia);
+    }
+    const float* bn = bnorm + (long long)ib * N;
+    float next[TN / 32];
+    auto fetch = [&](int tile) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(&w4[q]));
-        an = fmaf(f.x, f.x, an);
-        an = fmaf(f.y, f.y, an);
+      for (int u = 0; u < TN / 32; ++u) {
+        const int c = tile * TN + 32 * u + lane;
+        next[u] = c < N ? __ldg(bn + c) : BIG;
+      }
+    };
+    if (n > 0) fetch(t0);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % STAGES;
+      mbar_wait(bars + 8 * (STAGES + s), ((i / STAGES) & 1) ^ 1);
+      if (lane == 0) {
+        mbar_expect_tx(bars + 8 * s, tl.bytes);
+        tl.load(b_base + s * tl.bytes, &b128, &b32, bars + 8 * s,
+                (t0 + i) * TN, ib);
+      }
+#pragma unroll
+      for (int u = 0; u < TN / 32; ++u) bns[s * TN + 32 * u + lane] = next[u];
+      if (i + 1 < n) fetch(t0 + i + 1);
+      mbar_arrive(bars + 8 * s);
+    }
+    return;
+  }
+
+  // consumer warpgroup cw owns rows 64 cw .. 64 cw + 63 of the tile; a
+  // lane holds rows g and g + 8 of its warp's 16
+  regs_claim<CONSUMER_REGS>();
+  const int cw = (warp >> 2) - 1;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int arow0 = 64 * cw;
+  float d1[2] = {BIG, BIG}, d2[2] = {BIG, BIG};
+  int i1[2] = {0, 0};
+  float acc0[64], acc1[64];
+
+  mbar_wait(a_full, 0);
+  if (n > 0) {
+    mbar_wait(bars, 0);
+    mma_tile<DC>(acc0, tl, a_base, b_base, arow0);
+    // tile k is in flight in acc0 at the top of every pass
+    int k = 0;
+    for (; k + 2 < n; k += 2) {
+      consume<MODE, DC, STAGES, false>(acc0, acc1, tl, t0 + k, k, a_base,
+                                       b_base, bars, bns, arow0, t, lane, d1,
+                                       i1, d2, keep_live);
+      consume<MODE, DC, STAGES, false>(acc1, acc0, tl, t0 + k + 1, k + 1,
+                                       a_base, b_base, bars, bns, arow0, t,
+                                       lane, d1, i1, d2, keep_live);
+    }
+    if (k + 1 < n) {
+      consume<MODE, DC, STAGES, false>(acc0, acc1, tl, t0 + k, k, a_base,
+                                       b_base, bars, bns, arow0, t, lane, d1,
+                                       i1, d2, keep_live);
+      consume<MODE, DC, STAGES, true>(acc1, acc0, tl, t0 + k + 1, k + 1,
+                                      a_base, b_base, bars, bns, arow0, t,
+                                      lane, d1, i1, d2, keep_live);
+    } else {
+      consume<MODE, DC, STAGES, true>(acc0, acc1, tl, t0 + k, k, a_base,
+                                      b_base, bars, bns, arow0, t, lane, d1,
+                                      i1, d2, keep_live);
+    }
+  }
+
+  // merge the 4 lanes of a quad (same rows, other columns): every lane of
+  // the quad ends with the rows' result
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float od1 = __shfl_xor_sync(0xffffffffu, d1[h], off);
+      if (MODE == FULL) {
+        const int oi1 = __shfl_xor_sync(0xffffffffu, i1[h], off);
+        const float od2 = __shfl_xor_sync(0xffffffffu, d2[h], off);
+        merge(d1[h], i1[h], d2[h], od1, oi1, od2);
+      } else {
+        d1[h] = fminf(d1[h], od1);
       }
     }
-    store_top2(o, (long long)gridDim.y * M, d1, i1, d2, an, out_d1, out_i1,
-               out_d2, part);
+  // lane t < 2 of the quad writes row g + 8 t
+  if (t >= 2) return;
+  const int rl = arow0 + 16 * (warp & 3) + g + 8 * t;
+  const int r = row0 + rl;
+  if (MODE == FULL) mbar_wait(an_full, 0);
+  if (r >= M) return;
+  const long long o = (long long)p * M + r;
+  const float rd1 = t ? d1[1] : d1[0];
+  if (MODE != FULL) {
+    out_d1[o] = rd1;
+    return;
   }
+  store_top2(o, (long long)gridDim.y * M, rd1, t ? i1[1] : i1[0],
+             t ? d2[1] : d2[0], ans[rl], out_d1, out_i1, out_d2, part);
 }
 
 // ---------------------------------------------------------------------------
 // f32 FFMA kernel (K1 f32, K2 f32)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS, 2)
-l2_top2_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
+// byte offset of the 16-byte chunk kc of row r in a 128B-swizzled slice
+__device__ __forceinline__ int swz128(int r, int kc) {
+  return r * 128 + ((kc ^ (r & 7)) << 4);
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+l2_top2_f32_kernel(__grid_constant__ const CUtensorMap amap,
+                   __grid_constant__ const CUtensorMap bmap,
+                   const float* __restrict__ A,
                    const float* __restrict__ bnorm,
                    const int* __restrict__ pairs, int M, int N, int D,
                    int tiles_per_split, float* __restrict__ out_d1,
                    int* __restrict__ out_i1, float* __restrict__ out_d2,
                    float* __restrict__ part) {
-  // staging ring [2][KT][TM + FPAD] for A and B (k-major, so a thread reads
-  // its 4 consecutive rows / columns with one 16-byte load); reused for the
-  // cross-thread merge after the loop
-  constexpr int STAGE = KT * (TM + FPAD);
-  __shared__ __align__(16) float sm[4 * STAGE];
-  float* As = sm;
-  float* Bs = sm + 2 * STAGE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // stage s: the A slice, then the slices of the step's two B tiles
+  constexpr int STAGE = 3 * F32_SLICE;
+  const uint32_t ring = smem_u32(smem);
+  float* red = reinterpret_cast<float*>(smem + F32_STAGES * STAGE);
+  float* ans = red + 2 * 3 * TM;               // red: [2][3][TM] words
+  const uint32_t bars = smem_u32(ans + TM);    // full, empty, |a|^2's
+  const uint32_t an_full = bars + 16 * F32_STAGES;
 
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * TM;
-  const long long ia = pairs[2 * p];
-  const long long ib = pairs[2 * p + 1];
-  const float* Ab = A + ia * (long long)M * D;
-  const float* Bb = B + ib * (long long)N * D;
-  const float* bn = bnorm + ib * (long long)N;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;    // columns tx*4 + {0..3} and 64 + tx*4 + {0..3}
-  const int ty = tid >> 4;    // rows    ty*4 + {0..3} and 64 + ty*4 + {0..3}
-  const int lk = tid & 15;    // staging: k of the slice
-  const int lr = tid >> 4;    // staging: rows lr + 16 i
-
+  const int ia = pairs[2 * p];
+  const int ib = pairs[2 * p + 1];
   const int ntiles = (N + TN - 1) / TN;
   const int t0 = blockIdx.z * tiles_per_split;
   const int t1 = min(t0 + tiles_per_split, ntiles);
-  const int nk = D / KT;
-  const int steps = max(t1 - t0, 0) * nk;
+  const int cend = min(N, t1 * TN);   // columns past it are not this range's
+  const int nsteps = max(t1 - t0 + 1, 0) / 2;
+  const int nslices = (D + F32_KS - 1) / F32_KS;
+  const int items = nsteps * nslices;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
 
-  // per-thread sources: row lr + 16 i of the A tile and of a B tile; the
-  // row masks of A and the pointers are fixed for the block
-  const long long rs = 16LL * D;
-  const float* a_src = Ab + (long long)(row0 + lr) * D + lk;
-  const float* b_src = Bb + (long long)lr * D + lk;
-  unsigned amask = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    amask |= (row0 + lr + 16 * i < M) ? (1u << i) : 0u;
-
-  auto load = [&](int tile, int ks, int st) {
-    float* as = As + st * STAGE + lk * (TM + FPAD);
-    float* bs = Bs + st * STAGE + lk * (TN + FPAD);
-    const float* pa = a_src + ks * KT;
-    const float* pb = b_src + (long long)tile * TN * D + ks * KT;
-    const int cb = tile * TN + lr;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const bool oka = (amask >> i) & 1u;
-      cp_async4(as + lr + 16 * i, oka ? pa + i * rs : Ab, oka);
-      const bool okb = cb + 16 * i < N;
-      cp_async4(bs + lr + 16 * i, okb ? pb + i * rs : Bb, okb);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < F32_STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);                        // full
+      mbar_init(bars + 8 * (F32_STAGES + s), 8);         // empty
     }
-  };
+    mbar_init(an_full, 96);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  float run_d1[8], run_d2[8];
-  int run_i1[8];
+  if (warp < 4) {
+    // producer: one thread keeps the ring full; warps 1-3 take |a|^2 of
+    // the A tile's rows, in increasing k
+    regs_release<PRODUCER_REGS>();
+    if (warp != 0) {
+      for (int x = threadIdx.x - 32; x < TM; x += 96) {
+        const int r = row0 + x;
+        float an = 0.f;
+        if (r < M) {
+          const float4* arow = reinterpret_cast<const float4*>(
+              A + ((long long)ia * M + r) * D);
+          for (int k = 0; k < D / 4; ++k) {
+            const float4 v = __ldg(arow + k);
+            an = fmaf(v.x, v.x, an);
+            an = fmaf(v.y, v.y, an);
+            an = fmaf(v.z, v.z, an);
+            an = fmaf(v.w, v.w, an);
+          }
+        }
+        ans[x] = an;
+      }
+      mbar_arrive(an_full);
+      return;
+    }
+    if (lane != 0) return;
+    for (int i = 0; i < items; ++i) {
+      const int s = i % F32_STAGES;
+      const int step = i / nslices;
+      const int k = (i - step * nslices) * F32_KS;
+      const int tile = t0 + 2 * step;
+      const uint32_t st = ring + s * STAGE;
+      mbar_wait(bars + 8 * (F32_STAGES + s), ((i / F32_STAGES) & 1) ^ 1);
+      mbar_arrive_tx(bars + 8 * s, STAGE);
+      tma_load(st, &amap, bars + 8 * s, k, row0, ia);
+      tma_load(st + F32_SLICE, &bmap, bars + 8 * s, k, tile * TN, ib);
+      tma_load(st + 2 * F32_SLICE, &bmap, bars + 8 * s, k, (tile + 1) * TN,
+               ib);
+    }
+    return;
+  }
+
+  regs_claim<CONSUMER_REGS>();
+  const int cw = (warp >> 2) - 1;       // column tile 2 step + cw
+  const int rg = lane >> 3;             // rows 32 (warp % 4) + rg + 4 i
+  const int cg = lane & 7;              // columns cg + 8 j
+  const int rbase = 32 * (warp & 3) + rg;
+  const float* bn = bnorm + (long long)ib * N;
+
+  float d1[8], d2[8];
+  int i1[8];
+  float acc[8][16];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    run_d1[i] = BIG;
-    run_d2[i] = BIG;
-    run_i1[i] = 0;
+    d1[i] = BIG;
+    d2[i] = BIG;
+    i1[i] = 0;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
   }
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  int lt = t0, lks = 0;   // the next k slice to load: tile, slice
-  int ct = t0, cks = 0;   // the k slice being computed
-  if (steps > 0) {
-    load(lt, lks, 0);
-    if (++lks == nk) { lks = 0; ++lt; }
-  }
-  cp_commit();
-  for (int s = 0; s < steps; ++s) {
-    const int st = s & 1;
-    if (s + 1 < steps) {
-      load(lt, lks, st ^ 1);
-      if (++lks == nk) { lks = 0; ++lt; }
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const float* as = As + st * STAGE;
-    const float* bs = Bs + st * STAGE;
+  for (int i = 0; i < items; ++i) {
+    const int s = i % F32_STAGES;
+    const int step = i / nslices;
+    const int sl = i - step * nslices;
+    const int nk4 = min(F32_KS, D - sl * F32_KS) >> 2;
+    mbar_wait(bars + 8 * s, (i / F32_STAGES) & 1);
+    const unsigned char* as = smem + s * STAGE;
+    const unsigned char* bs = as + (1 + cw) * F32_SLICE;
 #pragma unroll
-    for (int k = 0; k < KT; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(
-          as + k * (TM + FPAD) + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(
-          as + k * (TM + FPAD) + 64 + ty * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(
-          bs + k * (TN + FPAD) + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(
-          bs + k * (TN + FPAD) + 64 + tx * 4);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int kc = 0; kc < F32_KS / 4; ++kc) {
+      if (kc >= nk4) break;
+      float4 a[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int r = 0; r < 8; ++r)
+        a[r] = *reinterpret_cast<const float4*>(as + swz128(rbase + 4 * r,
+                                                            kc));
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (++cks == nk) {
-      // merge this tile into the running top-2 (columns in increasing order)
-      const int col0 = ct * TN;
+      for (int j = 0; j < 16; ++j) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            bs + swz128(cg + 8 * j, kc));
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = col0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-        const float bnv = c < N ? __ldg(bn + c) : BIG;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          push(fmaf(-2.f, acc[i][j], bnv), c, run_d1[i], run_i1[i],
-               run_d2[i]);
-          acc[i][j] = 0.f;
+        for (int r = 0; r < 8; ++r) {
+          float x = acc[r][j];
+          x = fmaf(a[r].x, b.x, x);
+          x = fmaf(a[r].y, b.y, x);
+          x = fmaf(a[r].z, b.z, x);
+          acc[r][j] = fmaf(a[r].w, b.w, x);
         }
       }
-      cks = 0;
-      ++ct;
     }
-    __syncthreads();
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  // the 16 threads of a row merge through shared memory
-  float* red_d1 = sm;                                   // [16][TM]
-  int* red_i1 = reinterpret_cast<int*>(sm + 16 * TM);
-  float* red_d2 = sm + 32 * TM;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (F32_STAGES + s));
+    if (sl == nslices - 1) {
+      // the tile's products are complete: merge its columns in order
+      const int col0 = (t0 + 2 * step + cw) * TN;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int rl = i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4;
-    red_d1[tx * TM + rl] = run_d1[i];
-    red_i1[tx * TM + rl] = run_i1[i];
-    red_d2[tx * TM + rl] = run_d2[i];
-  }
-  __syncthreads();
-
-  if (tid < TM && row0 + tid < M) {
-    const int r = row0 + tid;
-    float d1 = red_d1[tid];
-    int i1 = red_i1[tid];
-    float d2 = red_d2[tid];
-    for (int w = 1; w < 16; ++w)
-      merge(d1, i1, d2, red_d1[w * TM + tid], red_i1[w * TM + tid],
-            red_d2[w * TM + tid]);
-    const float* arow = Ab + (long long)r * D;
-    float an = 0.f;
-    for (int k = 0; k < D; k += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(arow + k);
-      an = fmaf(v.x, v.x, an);
-      an = fmaf(v.y, v.y, an);
-      an = fmaf(v.z, v.z, an);
-      an = fmaf(v.w, v.w, an);
+      for (int j = 0; j < 16; ++j) {
+        const int c = col0 + cg + 8 * j;
+        const float bnv = c < cend ? __ldg(bn + c) : BIG;
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+          push(fmaf(-2.f, acc[r][j], bnv), c, d1[r], i1[r], d2[r]);
+          acc[r][j] = 0.f;
+        }
+      }
     }
-    store_top2((long long)p * M + r, (long long)gridDim.y * M, d1, i1, d2,
-               an, out_d1, out_i1, out_d2, part);
   }
+
+  // the 8 lanes of a row group (same rows, other columns): every lane ends
+  // with the rows' result
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float od1 = __shfl_xor_sync(0xffffffffu, d1[r], off);
+      const int oi1 = __shfl_xor_sync(0xffffffffu, i1[r], off);
+      const float od2 = __shfl_xor_sync(0xffffffffu, d2[r], off);
+      merge(d1[r], i1[r], d2[r], od1, oi1, od2);
+    }
+  // lane cg takes row rbase + 4 cg (selects, not a dynamic index)
+  float rd1 = d1[0], rd2 = d2[0];
+  int ri1 = i1[0];
+#pragma unroll
+  for (int r = 1; r < 8; ++r)
+    if (cg == r) {
+      rd1 = d1[r];
+      ri1 = i1[r];
+      rd2 = d2[r];
+    }
+  const int rl = rbase + 4 * cg;
+  float* mine = red + cw * 3 * TM;
+  mine[rl] = rd1;
+  reinterpret_cast<int*>(mine)[TM + rl] = ri1;
+  mine[2 * TM + rl] = rd2;
+  named_sync(1, 2 * 128);
+  if (cw != 0) return;
+  const float* other = red + 3 * TM;
+  merge(rd1, ri1, rd2, other[rl], reinterpret_cast<const int*>(other)[TM + rl],
+        other[2 * TM + rl]);
+  const int r = row0 + rl;
+  mbar_wait(an_full, 0);
+  if (r >= M) return;
+  store_top2((long long)p * M + r, (long long)gridDim.y * M, rd1, ri1, rd2,
+             ans[rl], out_d1, out_i1, out_d2, part);
 }
 
 // ---------------------------------------------------------------------------
@@ -638,55 +813,139 @@ __global__ void merge_splits_kernel(const float* __restrict__ part, int S,
   out_d2[o] = fmaxf(d2 + an, 0.f);
 }
 
-// The kernel instance's attributes, set once per device rather than before
-// every launch: dynamic shared memory up to MAX_SMEM, enough for any D the
-// launcher accepts, and all of the SM's 228 KB as shared memory. Two
-// threads that both set them do no harm.
-template <int MODE, int DC>
-cudaError_t set_mma_attributes() {
-  static std::atomic<bool> ready[MAX_DEVICES];
+// ---------------------------------------------------------------------------
+// host: tensor maps, attributes, launches
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      f = nullptr;
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// map over (images, rows, D) of row-major data at base with a box of
+// box_k x 128 rows x 1 image; rows past `rows` and columns past D read 0
+cudaError_t make_map(CUtensorMap* map, const void* base, bool bf16, int rows,
+                     int D, int box_k, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t es = bf16 ? 2 : 4;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, IMAGES};
+  const cuuint64_t strides[2] = {D * es, (cuuint64_t)rows * D * es};
+  const cuuint32_t box[3] = {(cuuint32_t)box_k, TM, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = enc(
+      map,
+      bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+int bf16_stages(int D) { return D == 144 ? BF16_STAGES_144 : BF16_STAGES_RT; }
+
+// dynamic shared memory of the bf16 kernel: alignment slack, the A tile and
+// the ring of B tiles, their |b|^2, the barriers
+int bf16_smem(int D) {
+  const int st = bf16_stages(D);
+  return 1024 + (1 + st) * TM * D * 2 + (st * TN + TM) * 4 +
+         8 * (2 * st + 2);
+}
+
+constexpr int F32_SMEM = 1024 + F32_STAGES * 3 * F32_SLICE +
+                         (2 * 3 + 1) * TM * 4 + 8 * (2 * F32_STAGES + 1);
+
+// the kernel's attributes, set once per device rather than before every
+// launch: its dynamic shared memory and all of the SM's 228 KB as shared
+// memory. Two threads that both set them do no harm.
+template <typename K>
+cudaError_t set_attributes(K kernel, int smem,
+                           std::atomic<bool> (&ready)[MAX_DEVICES]) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < MAX_DEVICES && ready[dev].load(std::memory_order_acquire))
     return cudaSuccess;
-  e = cudaFuncSetAttribute(l2_top2_mma_kernel<MODE, DC>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           MAX_SMEM);
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(l2_top2_mma_kernel<MODE, DC>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             100);
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
   if (e == cudaSuccess && dev < MAX_DEVICES)
     ready[dev].store(true, std::memory_order_release);
   return e;
 }
 
 template <int MODE, int DC>
-cudaError_t launch_mma_d(dim3 grid, cudaStream_t s, const void* A,
-                         const void* B, const float* bnorm, const int* pairs,
-                         int M, int N, int D, int tps, float* d1, int* i1,
-                         float* d2, float* part) {
-  const int smem = 3 * TM * D * 2 + 2 * TN * 4;
-  const cudaError_t e = set_mma_attributes<MODE, DC>();
+cudaError_t launch_wgmma_d(dim3 grid, cudaStream_t s, const void* A,
+                           const void* B, const float* bnorm,
+                           const int* pairs, int M, int N, int D, int tps,
+                           float* d1, int* i1, float* d2, float* part) {
+  constexpr int ST = DC == 144 ? BF16_STAGES_144 : BF16_STAGES_RT;
+  static std::atomic<bool> ready[MAX_DEVICES];
+  auto kernel = l2_top2_wgmma_kernel<MODE, DC, ST>;
+  const int smem = bf16_smem(D);
+  cudaError_t e = set_attributes(kernel, MAX_SMEM, ready);
+  CUtensorMap a128, a32, b128, b32;
+  if (e == cudaSuccess)
+    e = make_map(&a128, A, true, M, D, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = make_map(&a32, A, true, M, D, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == cudaSuccess)
+    e = make_map(&b128, B, true, N, D, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = make_map(&b32, B, true, N, D, 16, CU_TENSOR_MAP_SWIZZLE_32B);
   if (e != cudaSuccess) return e;
-  l2_top2_mma_kernel<MODE, DC><<<grid, THREADS, smem, s>>>(
-      static_cast<const __nv_bfloat16*>(A),
-      static_cast<const __nv_bfloat16*>(B), bnorm, pairs, M, N, D, tps, d1,
-      i1, d2, part, /*keep_live=*/0);
+  kernel<<<grid, THREADS, smem, s>>>(
+      a128, a32, b128, b32, static_cast<const __nv_bfloat16*>(A), bnorm,
+      pairs, M, N, D, tps, d1, i1, d2, part, /*keep_live=*/0);
   return cudaGetLastError();
 }
 
 template <int MODE>
-cudaError_t launch_mma(dim3 grid, cudaStream_t s, const void* A,
+cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const void* A,
+                         const void* B, const float* bnorm, const int* pairs,
+                         int M, int N, int D, int tps, float* d1, int* i1,
+                         float* d2, float* part) {
+  if (D == 144)
+    return launch_wgmma_d<MODE, 144>(grid, s, A, B, bnorm, pairs, M, N, D,
+                                     tps, d1, i1, d2, part);
+  return launch_wgmma_d<MODE, 0>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
+                                 d1, i1, d2, part);
+}
+
+cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* A,
                        const void* B, const float* bnorm, const int* pairs,
                        int M, int N, int D, int tps, float* d1, int* i1,
                        float* d2, float* part) {
-  if (D == 144)
-    return launch_mma_d<MODE, 144>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
-                                   d1, i1, d2, part);
-  return launch_mma_d<MODE, 0>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1,
-                               i1, d2, part);
+  static std::atomic<bool> ready[MAX_DEVICES];
+  cudaError_t e = set_attributes(l2_top2_f32_kernel, F32_SMEM, ready);
+  CUtensorMap am, bm;
+  if (e == cudaSuccess)
+    e = make_map(&am, A, false, M, D, F32_KS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e == cudaSuccess)
+    e = make_map(&bm, B, false, N, D, F32_KS, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (e != cudaSuccess) return e;
+  l2_top2_f32_kernel<<<grid, THREADS, F32_SMEM, s>>>(
+      am, bm, static_cast<const float*>(A), bnorm, pairs, M, N, D, tps, d1,
+      i1, d2, part);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -707,10 +966,11 @@ extern "C" int r3d_l2_top2(int dtype, int mode, const void* A, const void* B,
     return (int)cudaErrorInvalidValue;
   if (mode != FULL && (dtype != 1 || splits != 1 || mode > MIN_ONLY))
     return (int)cudaErrorInvalidValue;
-  // the bf16 kernel's A tile and two B tiles (3 x 128 x D bf16) plus 1 KB
-  // of |b|^2 must fit in 227 KB of shared memory: D <= 288
-  if (dtype == 1 && 3 * TM * D * 2 + 2 * TN * 4 > MAX_SMEM)
+  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16)
     return (int)cudaErrorInvalidValue;
+  // the bf16 kernel's A tile, its ring of B tiles (two at a run-time D)
+  // and their |b|^2 must fit in 227 KB of shared memory: D <= 288
+  if (dtype == 1 && bf16_smem(D) > MAX_SMEM) return (int)cudaErrorInvalidValue;
   const int ntiles = (N + TN - 1) / TN;
   const int tps = (ntiles + splits - 1) / splits;
   if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
@@ -719,20 +979,18 @@ extern "C" int r3d_l2_top2(int dtype, int mode, const void* A, const void* B,
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
-    l2_top2_f32_kernel<<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(A), static_cast<const float*>(B), bnorm,
-        pairs, M, N, D, tps, d1, i1, d2, scratch);
-    e = cudaGetLastError();
+    e = launch_f32(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1, i1, d2,
+                   scratch);
   } else if (dtype == 1) {
     if (mode == FULL)
-      e = launch_mma<FULL>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1, i1,
-                           d2, scratch);
+      e = launch_wgmma<FULL>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1,
+                             i1, d2, scratch);
     else if (mode == MM_ONLY)
-      e = launch_mma<MM_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1,
-                              i1, d2, nullptr);
+      e = launch_wgmma<MM_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
+                                d1, i1, d2, nullptr);
     else
-      e = launch_mma<MIN_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1,
-                               i1, d2, nullptr);
+      e = launch_wgmma<MIN_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
+                                 d1, i1, d2, nullptr);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -5,24 +5,30 @@ with ``ctypes`` (no PyTorch headers, so a build takes seconds). Libraries go
 to :func:`runtime.kernel_build_dir` under a name that carries a hash of the
 source and the flags, so an edited source is rebuilt and concurrent builders
 never read a half-written file (write to a temporary name, then rename).
-``compile_library`` does the same for any compiler (``native.py``'s g++).
+``compile_library`` does the same for any compiler (``native.py``'s g++)
+and keeps the compiler's output beside the library (``<library>.log``):
+for nvcc that is ptxas's report of each kernel's registers, spills and
+shared memory (``-Xptxas -v``), which :func:`ptxas_usage` reads.
+:func:`sass_opcodes` and :func:`hmma_counts` read the built SASS.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import collections
 import os
+import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict
+from typing import Dict, Optional
 
 from regard3d_tpu_torch import runtime
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -51,8 +57,8 @@ def library_path(src: str, flags) -> str:
 
 def compile_library(compiler: str, flags, src: str) -> str:
     """Compile ``src`` with ``compiler`` and ``flags`` into a shared library
-    unless it exists; returns its path. Raises with the compiler's output
-    if the build fails."""
+    unless it exists; returns its path. The compiler's output goes to
+    ``<library>.log``. Raises with that output if the build fails."""
     out = library_path(src, flags)
     if os.path.exists(out):
         return out
@@ -65,8 +71,21 @@ def compile_library(compiler: str, flags, src: str) -> str:
         os.unlink(tmp)
         raise RuntimeError(f"{os.path.basename(compiler)} failed on {src}:\n"
                            f"{r.stdout}")
+    with open(tmp + ".log", "w") as f:
+        f.write(r.stdout)
+    os.replace(tmp + ".log", out + ".log")
     os.replace(tmp, out)
     return out
+
+
+def build_log(lib_path: str) -> str:
+    """The compiler's output when ``lib_path`` was built ("" if none was
+    kept)."""
+    try:
+        with open(lib_path + ".log") as f:
+            return f.read()
+    except FileNotFoundError:
+        return ""
 
 
 def _lib_path(source: str) -> str:
@@ -83,20 +102,92 @@ def build(source: str) -> str:
                            os.path.join(CSRC, source))
 
 
-def hmma_counts(lib_path: str) -> Dict[str, int]:
-    """Tensor-core instructions (HMMA) per instance of the bf16 matcher
-    kernel in a built library, keyed by its template arguments
-    (``"<mode>,<D or 0>"``), from the SASS that ``cuobjdump`` prints."""
+def short_name(mangled: str) -> str:
+    """``l2_top2_wgmma_kernel<0,144,4>`` for the mangled name of a kernel
+    (template arguments are integers); the mangled name if it names no
+    ``*_kernel``. Of the length-prefixed names that end in ``_kernel`` the
+    last one is the kernel's (a hash's digits can spell a longer one)."""
+    best = None
+    for m in re.finditer(r"\d+", mangled):
+        for i in range(m.start(), m.end()):     # a length ends the digits
+            n = int(mangled[i:m.end()])
+            name = mangled[m.end():m.end() + n]
+            if (len(name) == n and name.endswith("_kernel")
+                    and not name[0].isdigit()):
+                best = (m.end(), name)
+    if best is None:
+        return mangled
+    end, name = best
+    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end + len(name):])
+    args = re.findall(r"Li(-?\d+)E", args[1]) if args else []
+    return name + (f"<{','.join(args)}>" if args else "")
+
+
+def _sass(lib_path: str) -> str:
     tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     r = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                        text=True, timeout=300, check=True)
+    return r.stdout
+
+
+_SASS_OP = re.compile(r"^\s*(?:/\*[0-9a-f]+\*/)?\s*(?:@!?U?P\w+\s+)?"
+                      r"([A-Z][A-Z0-9_]*)[.\s;]")
+
+
+def sass_opcodes(lib_path: str) -> Dict[str, Dict[str, int]]:
+    """Instruction counts per kernel in a built library, keyed by
+    :func:`short_name`, each a dict of base opcode (``FFMA``, ``HGMMA``,
+    ``LDS``...) to its count in the SASS ``cuobjdump`` prints."""
     out = {}
-    for part in r.stdout.split("Function : ")[1:]:
+    for part in _sass(lib_path).split("Function : ")[1:]:
+        name, _, body = part.partition("\n")
+        ops = collections.Counter(
+            m.group(1) for m in map(_SASS_OP.match, body.splitlines()) if m)
+        out[short_name(name.strip())] = dict(ops)
+    return out
+
+
+def ptxas_usage(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers, spills and memory per kernel from ptxas's ``-v`` report
+    (:func:`build_log`), keyed by :func:`short_name`: ``registers``,
+    ``spill_stores`` and ``spill_loads`` (bytes), ``stack`` (bytes),
+    ``smem`` (static shared bytes)."""
+    out: Dict[str, Dict[str, int]] = {}
+    cur: Optional[Dict[str, int]] = None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(short_name(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return out
+
+
+def hmma_counts(lib_path: str) -> Dict[str, int]:
+    """Tensor-core instructions (``HMMA`` of ``mma.sync``, ``HGMMA`` of
+    ``wgmma``) per instance of the bf16 matcher kernel in a built library
+    (``l2_top2_mma_kernel`` or ``l2_top2_wgmma_kernel``), keyed by its
+    template arguments (``"<mode>,<D or 0>"``), from the SASS that
+    ``cuobjdump`` prints."""
+    out = {}
+    for part in _sass(lib_path).split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "l2_top2_mma_kernel" in name:
-            args = name.split("l2_top2_mma_kernelI", 1)[1].split("EEE", 1)[0]
-            mode, dc = (a.lstrip("Li") for a in args.split("E"))
-            out[f"{mode},{dc}"] = part.count("HMMA")
+        m = re.search(r"l2_top2_(?:wg)?mma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"{m.group(1)},{m.group(2)}"] = (part.count("HMMA")
+                                                 + part.count("HGMMA"))
     return out
 
 

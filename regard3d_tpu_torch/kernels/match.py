@@ -41,8 +41,9 @@ _SOURCE = "match_top2.cu"
 # the kernels' block tile: 128 rows of A by 128 columns (rows of B); the
 # ablation ``mm_only`` reads the first column of every column tile
 TILE_M = TILE_N = 128
-# largest D of the bf16 kernel: its three 128 x D bf16 tiles and 1 KB of
-# |b|^2 fit in 227 KB of shared memory
+# largest D of the bf16 kernel: with D set at run time its A tile and a
+# two-stage ring of B tiles (three 128 x D bf16 tiles), their |b|^2 and
+# |a|^2 fit in 227 KB of shared memory
 MAX_BF16_DIM = 288
 
 ABLATIONS = ("mm_only", "min_only")
@@ -213,8 +214,10 @@ def column_splits(P: int, M: int, N: int, sms: int) -> int:
 
 
 def _check_desc(name, t):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
+    """What the kernels' tensor maps take: a contiguous (B, N, D) float32
+    or bfloat16 tensor whose rows are whole k steps of 16 (so a multiple of
+    16 bytes, as TMA needs), D <= MAX_BF16_DIM in bfloat16, 16-byte
+    aligned, on a card."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
     if t.dim() != 3 or not t.is_contiguous():
@@ -226,12 +229,35 @@ def _check_desc(name, t):
                          f"{MAX_BF16_DIM}, got {t.shape[2]}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
 
 
-def _launch(desc_a, desc_b, bnorm, pairs, mode: str = "full"):
-    """One kernel call: rows of desc_a[pairs[:, 0]] against
-    desc_b[pairs[:, 1]]; ``pairs=None`` is the single pair (0, 0). Returns
-    (d1, i1, d2), each (P, M); the ablation modes fill only d1."""
+def _to_device(t, dev):
+    """``t`` (on the host) on ``dev``; to a card pinned and non-blocking, as
+    a pageable copy waits for the card's queue to drain."""
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
+def _host_pairs(pairs, Ba: int, Bb: int):
+    """The (P, 2) pair table on the host as int32, checked against Ba
+    images of A and Bb of B."""
+    pairs_h = pairs.detach().to("cpu", torch.int32).contiguous()
+    if pairs_h.dim() != 2 or pairs_h.shape[1] != 2 or pairs_h.shape[0] == 0:
+        raise ValueError("pairs must be a non-empty (P, 2) table")
+    if (pairs_h.min() < 0 or pairs_h[:, 0].max() >= Ba
+            or pairs_h[:, 1].max() >= Bb):
+        raise IndexError("pair index out of range")
+    return pairs_h
+
+
+def _launch(desc_a, desc_b, bnorm, pairs_h, mode: str = "full"):
+    """One kernel call: rows of desc_a[pairs_h[:, 0]] against
+    desc_b[pairs_h[:, 1]] (a table checked by ``_host_pairs``);
+    ``pairs_h=None`` is the single pair (0, 0). Returns (d1, i1, d2), each
+    (P, M); the ablation modes fill only d1."""
     _check_desc("desc_a", desc_a)
     _check_desc("desc_b", desc_b)
     if desc_a.dtype != desc_b.dtype or desc_a.device != desc_b.device:
@@ -243,17 +269,10 @@ def _launch(desc_a, desc_b, bnorm, pairs, mode: str = "full"):
     dev = desc_a.device
     Ba, M, D = desc_a.shape
     Bb, N, _ = desc_b.shape
-    if pairs is None:
+    if pairs_h is None:
         pairs_d = _single_pair(dev.index)
     else:
-        pairs_h = pairs.detach().to("cpu", torch.int32).contiguous()
-        if (pairs_h.dim() != 2 or pairs_h.shape[1] != 2
-                or pairs_h.shape[0] == 0):
-            raise ValueError("pairs must be a non-empty (P, 2) table")
-        if (pairs_h.min() < 0 or pairs_h[:, 0].max() >= Ba
-                or pairs_h[:, 1].max() >= Bb):
-            raise IndexError("pair index out of range")
-        pairs_d = pairs_h.to(dev)
+        pairs_d = _to_device(pairs_h, dev)
     if bnorm.shape != (Bb, N) or bnorm.dtype != torch.float32 \
             or bnorm.device != dev or not bnorm.is_contiguous():
         raise ValueError("bnorm must be a contiguous (B, N) float32 tensor "
@@ -278,9 +297,19 @@ def _launch(desc_a, desc_b, bnorm, pairs, mode: str = "full"):
     return d1, i1, d2
 
 
-def _bnorm(desc, mask):
+def _bnorm(desc, mask, images=None):
     """|b|^2 per row with 3e38 on masked rows, from the descriptors as given
-    (f32 values; already-rounded values for a bf16 tensor)."""
+    (f32 values; already-rounded values for a bf16 tensor). ``images`` (a
+    host index tensor) restricts the sums to the images a pair table reads
+    as B; every other row stays 3e38."""
+    if images is not None:
+        images = torch.unique(images.to(torch.long))
+        if len(images) < desc.shape[0]:
+            out = torch.full(mask.shape, _BIG, dtype=torch.float32,
+                             device=desc.device)
+            idx = _to_device(images, desc.device)
+            out[idx] = _bnorm(desc[idx], mask[idx])
+            return out
     return torch.where(mask, torch.sum(desc.float() ** 2, -1),
                        _BIG).contiguous()
 
@@ -297,7 +326,8 @@ def l2_top2_block(desc, mask, pairs, bf16: bool = False):
     if not desc.is_cuda:
         return l2_top2_block_plain(desc, mask, pairs, bf16)
     ops = _kernel_operands(desc, bf16)
-    out = _launch(ops, ops, _bnorm(desc, mask), pairs)
+    pairs_h = _host_pairs(pairs, desc.shape[0], desc.shape[0])
+    out = _launch(ops, ops, _bnorm(desc, mask, pairs_h[:, 1]), pairs_h)
     LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[ops.dtype]}"] += 1
     return out
 
@@ -325,7 +355,9 @@ def l2_top2_block_ablated(desc, mask, pairs, mode: str):
     if not desc.is_cuda:
         return l2_top2_block_ablated_plain(desc, mask, pairs, mode, TILE_N)
     ops = _kernel_operands(desc, True)
-    d1, _, _ = _launch(ops, ops, _bnorm(desc, mask), pairs, mode)
+    pairs_h = _host_pairs(pairs, desc.shape[0], desc.shape[0])
+    d1, _, _ = _launch(ops, ops, _bnorm(desc, mask, pairs_h[:, 1]), pairs_h,
+                       mode)
     LAUNCHES[f"l2_top2_block_{mode}_bf16"] += 1
     return d1
 
@@ -370,7 +402,8 @@ def match_pairs_batched(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
         P = desc_a.shape[0]
         a, b = desc_a.contiguous(), desc_b.contiguous()
         pairs = torch.arange(P, dtype=torch.int32)[:, None].expand(P, 2)
-        d1, i1, d2 = _launch(a, b, _bnorm(b, mask_b), pairs)
+        d1, i1, d2 = _launch(a, b, _bnorm(b, mask_b),
+                             _host_pairs(pairs, P, P))
         LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[a.dtype]}"] += 1
     else:
         d1, i1, d2 = _top2_plain(desc_a, desc_b, _bnorm(desc_b, mask_b),

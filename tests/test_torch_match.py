@@ -353,3 +353,68 @@ def test_wrappers_take_plain_version_only_on_cpu(rng):
     with pytest.raises(ValueError, match="mode"):
         tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
                                  torch.tensor(pairs), "full")
+
+
+def _flat(shape, dtype, offset=0):
+    """A contiguous tensor of ``shape`` starting ``offset`` elements into a
+    fresh (aligned) buffer."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype)[offset:].view(shape)
+
+
+@pytest.mark.parametrize("case,dtype,shape,offset,match", [
+    ("d_not_whole_k_steps", torch.bfloat16, (2, 8, 8), 0, "multiple of 16"),
+    ("f32_rows_of_80_bytes", torch.float32, (2, 8, 20), 0, "multiple of 16"),
+    ("bf16_d_above_max", torch.bfloat16, (2, 8, 304), 0, "D <= 288"),
+    ("row_stride_not_16_bytes", torch.float32, (2, 8, 16), 0, "contiguous"),
+    ("misaligned", torch.float32, (2, 8, 16), 1, "16-byte aligned"),
+    ("float16", torch.float16, (2, 8, 16), 0, "float32 or bfloat16"),
+    ("layout_ok_but_on_the_host", torch.bfloat16, (2, 8, 288), 0, "CUDA"),
+])
+def test_kernel_operands_the_tensor_maps_cannot_take_are_rejected(
+        case, dtype, shape, offset, match):
+    """The kernels read rows through TMA tensor maps: rows of whole k steps
+    (16 values, so a multiple of 16 bytes), D <= MAX_BF16_DIM in bf16,
+    16-byte aligned, contiguous; the layout is checked before the device,
+    and a tensor that passes it still has to be on a card."""
+    t = _flat(shape, dtype, offset)
+    if case == "row_stride_not_16_bytes":      # rows 20 floats apart
+        t = _flat((2, 8, 20), dtype)[..., :16]
+    assert tm.MAX_BF16_DIM == 288
+    with pytest.raises((ValueError, TypeError), match=match):
+        tm._check_desc("desc", t)
+
+
+def test_host_pairs_checks_the_table():
+    """The pair table goes to the card as a checked int32 (P, 2) table:
+    A indices below Ba, B indices below Bb, none negative, not empty."""
+    good = tm._host_pairs(torch.tensor([[0, 1], [2, 0]]), 3, 2)
+    assert good.dtype == torch.int32 and good.is_contiguous()
+    assert good.tolist() == [[0, 1], [2, 0]]
+    for bad, err in ((torch.zeros((0, 2), dtype=torch.int32), ValueError),
+                     (torch.zeros((3,), dtype=torch.int32), ValueError),
+                     (torch.tensor([[0, 2]]), IndexError),
+                     (torch.tensor([[3, 0]]), IndexError),
+                     (torch.tensor([[-1, 0]]), IndexError)):
+        with pytest.raises(err):
+            tm._host_pairs(bad, 3, 2)
+
+
+def test_bnorm_of_the_images_a_table_reads(rng):
+    """|b|^2 restricted to the images of a pair table's B column: the same
+    values on those images' rows (masked rows 3e38), 3e38 on the others;
+    a table that reads every image gives the full sums."""
+    desc, mask, _ = _block_inputs(rng)
+    desc, mask = torch.tensor(desc), torch.tensor(mask)
+    full = tm._bnorm(desc, mask)
+    images = torch.tensor([2, 0, 2], dtype=torch.int32)
+    sub = tm._bnorm(desc, mask, images)
+    assert sub.shape == full.shape and sub.dtype == torch.float32
+    for b in range(desc.shape[0]):
+        if b in (0, 2):
+            np.testing.assert_array_equal(sub[b].numpy(), full[b].numpy())
+        else:
+            assert bool((sub[b] == tm._BIG).all())
+    every = torch.arange(desc.shape[0]).repeat(2)
+    np.testing.assert_array_equal(tm._bnorm(desc, mask, every).numpy(),
+                                  full.numpy())

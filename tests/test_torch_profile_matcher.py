@@ -84,37 +84,54 @@ def test_raises_without_a_card(monkeypatch):
         tpm.main(SMALL)
 
 
-def _fake_sass(counts):
-    """``cuobjdump -sass`` text with the given HMMA per bf16 kernel
-    instance (mangled as nvcc names them), beside the f32 and merge
+def _fake_sass(counts, wgmma=False):
+    """``cuobjdump -sass`` text with the given tensor-core instructions per
+    bf16 kernel instance (mangled as nvcc names them): HMMA in
+    ``l2_top2_mma_kernel<mode, D>`` (mma.sync), or with ``wgmma`` HGMMA in
+    ``l2_top2_wgmma_kernel<mode, D, stages>``; beside them the f32 and merge
     kernels, which hold none."""
     ns = "_ZN43_GLOBAL__N__aff430fc_10_match_top2_cu_f720101b"
     text = "Fatbin elf code:\narch = sm_90a\n"
     for (mode, dc), n in counts.items():
-        text += (f"\t\tFunction : {ns}18l2_top2_mma_kernelILi{mode}ELi{dc}"
-                 f"EEEvPK13__nv_bfloat16S3_PKfPKiiiiiPfPiS8_S8_i\n"
-                 + "  LDSM.16.M88.4 R4, [R2] ;\n"
-                 + "  HMMA.16816.F32.BF16 R8, R4, R6, R8 ;\n" * n)
+        if wgmma:
+            text += (f"\t\tFunction : {ns}20l2_top2_wgmma_kernelILi{mode}"
+                     f"ELi{dc}ELi{4 if dc else 2}EEEv14CUtensorMap_stS1_S1_"
+                     f"S1_PK13__nv_bfloat16PKfPKiiiiiPfPiS9_S9_i\n"
+                     + "  WARPGROUP.ARRIVE ;\n"
+                     + "  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;\n"
+                     * n)
+        else:
+            text += (f"\t\tFunction : {ns}18l2_top2_mma_kernelILi{mode}ELi"
+                     f"{dc}EEEvPK13__nv_bfloat16S3_PKfPKiiiiiPfPiS8_S8_i\n"
+                     + "  LDSM.16.M88.4 R4, [R2] ;\n"
+                     + "  HMMA.16816.F32.BF16 R8, R4, R6, R8 ;\n" * n)
     return text + (f"\t\tFunction : {ns}19merge_splits_kernelEPKfixPfPiS2_\n"
                    "  FMNMX R1, R2, R3, PT ;\n"
                    f"\t\tFunction : {ns}18l2_top2_f32_kernelEPKfS1_S1_PKiiiiiPf"
                    "PiS4_S4_\n  FFMA R1, R2, R3, R1 ;\n")
 
 
-@pytest.mark.parametrize("counts", [
-    {(m, dc): 144 if dc else 48 for m in (0, 1, 2) for dc in (0, 144)},
-    {(0, 144): 144, (1, 144): 36, (2, 144): 144, (0, 0): 48, (1, 0): 12,
-     (2, 0): 48},
-], ids=["all_live", "dead_mm_only"])
-def test_hmma_counts_per_kernel_instance(monkeypatch, counts):
+@pytest.mark.parametrize("counts,wgmma", [
+    ({(m, dc): 144 if dc else 48 for m in (0, 1, 2) for dc in (0, 144)},
+     False),
+    ({(0, 144): 144, (1, 144): 36, (2, 144): 144, (0, 0): 48, (1, 0): 12,
+      (2, 0): 48}, False),
+    ({(m, dc): 36 if dc else 28 for m in (0, 1, 2) for dc in (0, 144)},
+     True),
+    ({(0, 144): 36, (1, 144): 9, (2, 144): 36, (0, 0): 28, (1, 0): 0,
+      (2, 0): 28}, True),
+], ids=["all_live", "dead_mm_only", "wgmma_all_live", "wgmma_dead_mm_only"])
+def test_hmma_counts_per_kernel_instance(monkeypatch, counts, wgmma):
     """``_build.hmma_counts`` (the check of ``chip_smoke.py`` phase (a))
-    reads cuobjdump's SASS next to nvcc and counts HMMA per instance of the
+    reads cuobjdump's SASS next to nvcc and counts the tensor-core
+    instructions (HMMA of mma.sync, HGMMA of wgmma) per instance of the
     bf16 kernel, keyed ``"<mode>,<D or 0>"``; other kernels are left out."""
     calls = []
 
     def run(cmd, **kw):
         calls.append(cmd)
-        return subprocess.CompletedProcess(cmd, 0, _fake_sass(counts), "")
+        return subprocess.CompletedProcess(cmd, 0, _fake_sass(counts, wgmma),
+                                           "")
 
     monkeypatch.setattr(_build, "nvcc_path", lambda: "/cuda/bin/nvcc")
     monkeypatch.setattr(_build.subprocess, "run", run)
