@@ -12,7 +12,11 @@ run if it fails:
     (``tools/kernel_report``); fail unless the three modes of the bf16
     kernel hold the same number of tensor-core instructions (HGMMA of
     ``wgmma``) in the built SASS, above 0, for D = 144 and for D set at run
-    time, or if the f32 kernel spills;
+    time, or if the f32 kernel, the bf16 FULL instance at D = 144 or K2's
+    prologue spills; print how many clusters of the single-pair call's
+    ranks each dtype's FULL kernel can hold at once
+    (``cudaOccupancyMaxActiveClusters``) and fail unless its 4000-row
+    call's clusters fit in one wave;
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
@@ -25,8 +29,10 @@ run if it fails:
     run's;
 (c) hold each kernel against its plain PyTorch version on the card at the
     main paths' shapes (the stage's own descriptors): K1 in f32 and bf16,
-    the single-pair call in f32 and bf16 with ragged M != N (split over
-    column ranges), the two ablations of the matcher profile at the
+    the single-pair call in f32 and bf16 with ragged M != N (a fused
+    prologue and one launch of clusters whose ranks split the columns and
+    merge them in shared memory: two kernels a call, counted by
+    ``torch.profiler``), the two ablations of the matcher profile at the
     kernel's column tile, batched single pairs (``match_pairs_batched``,
     K1 over the table (p, p), one launch); time kernel, plain version and
     ``torch.bmm`` /
@@ -35,13 +41,16 @@ run if it fails:
     operands, |b|^2 and the pair table made beforehand), record each row's
     registers and spills from (a), hold the f32 K1 rows (here and in (k))
     and the plain f32 version against a float64 yardstick (the plain
-    version in float64), and split
-    the single-pair call's host time per call between its wrapper, its
-    launch and its C call. Fails if bf16 K1 is not above the FFMA peak (it
-    would not be on the tensor cores) or ``mm_only`` beats its tensor-core
-    bound (almost none of its product ran). Exact ties inside
-    one mma tile and across two column ranges keep the lowest column with
-    d2 == d1; the bf16 kernel's instance for D set at run time agrees at
+    version in float64), time the single-pair call's C entry alone and
+    split its host time per call between the wrapper and the C call. Fails
+    if bf16 K1 is not above the FFMA peak (it would not be on the tensor
+    cores) or ``mm_only`` beats its tensor-core bound (almost none of its
+    product ran). Exact ties inside one mma tile and across two cluster
+    ranks keep the lowest column with d2 == d1, as the plain version of the
+    ranks' merge does; K2 calls from 4 threads on one stream (sharing its
+    workspace) equal single calls bit for bit; the public ``match_pair`` on
+    CUDA tensors launches K2 once and agrees with its ``use_kernel=False``
+    path; the bf16 kernel's instance for D set at run time agrees at
     D = 256;
 (e) where the time goes: the stage again on its first 4 views (6 pairs),
     warm, once on the host clock and once under ``torch.profiler``; per
@@ -202,6 +211,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
 
 N_CAMS, HW, MAX_KP, PAIR_BLOCK = 11, 1024, 4096, 64
+K2_M, K2_N = 4000, 3001          # (c): the single-pair call, ragged M != N
 PROFILE_VIEWS = 4                # (e): the profiled stage's views
 ACCURACY_ITERS = 512             # (h): RANSAC iterations
 PHASES = ("features", "matching", "filter")
@@ -326,10 +336,27 @@ def phase_build():
         check(n[0] == n[1] == n[2] > 0,
               f"HGMMA of full, mm_only, min_only (D={dc}; 0: set at run "
               f"time): {n}")
-    f32 = usage.get("l2_top2_f32_kernel", {})
-    check(f32.get("registers", 0) > 0 and f32.get("spill_stores", 1) == 0
-          and f32.get("spill_loads", 1) == 0,
-          f"the f32 kernel spills or was not reported: {f32}")
+    for name in ("l2_top2_f32_kernel", "l2_top2_wgmma_kernel<0,144,4>",
+                 "l2_top2_prep_kernel"):
+        u = usage.get(name, {})
+        check(u.get("registers", 0) > 0 and u.get("spill_stores", 1) == 0
+              and u.get("spill_loads", 1) == 0,
+              f"{name} spills or was not reported: {u}")
+    # K2's clusters: one 227 KB block an SM, so a cluster of r blocks needs
+    # r free SMs of one GPC; the plan reads how many the card holds
+    dev = torch.device("cuda", 0)
+    clusters = -(-K2_M // match_mod.TILE_M)
+    for bf16 in (False, True):
+        fits = match_mod._cluster_fits(0, bf16, 144)
+        ranks, per = match_mod.plan(dev, bf16, 1, K2_M, K2_N, 144)
+        log(f"(a) {'bf16' if bf16 else 'f32'} FULL kernel: clusters of "
+            f"1..{match_mod.MAX_RANKS} blocks the card holds at once "
+            f"(cudaOccupancyMaxActiveClusters) {list(fits)}; K2 at "
+            f"{K2_M}x{K2_N}: {clusters} clusters of {ranks} ranks x {per} "
+            f"column tiles")
+        check(ranks > 1 and fits[ranks - 1] >= clusters,
+              f"K2's {clusters} clusters of {ranks} ranks are not one "
+              f"wave: {fits}")
     return usage
 
 
@@ -484,7 +511,7 @@ K2 = "regard3d_tpu/kernels/match.py:151"
 K3 = "tools/profile_matcher.py:86"
 
 
-def host_us(fn, reps: int = 200) -> float:
+def host_us(fn, reps: int = 50) -> float:
     """Host microseconds per call of ``fn`` over back-to-back calls (the
     launches queue on the card; one synchronize after the timed calls)."""
     fn()
@@ -497,30 +524,26 @@ def host_us(fn, reps: int = 200) -> float:
     return dt / reps * 1e6
 
 
-def host_split(match_mod, a, b, mb, ab, bb, bf16):
+def pair_c_call(match_mod, a, b, mb, bf16):
+    """The single-pair call's C entry alone (``r3d_l2_top2_pair``: the
+    prologue and the cluster launch) on a workspace and outputs allocated
+    once (``tools/kernel_report.pair_call``), as a function of no arguments
+    that returns its error code."""
+    from regard3d_tpu_torch.kernels import _build
+    from regard3d_tpu_torch.tools import kernel_report
+    _, call, _ = kernel_report.pair_call(_build.build(match_mod._SOURCE), a,
+                                         b, mb, bf16)
+    check(call() == 0, "the single-pair C call failed")
+    return call
+
+
+def host_split(match_mod, a, b, mb, bf16):
     """(c) where a single-pair call's host time goes: the wrapper
-    ``l2_top2``; its ``_launch`` on operands and |b|^2 made beforehand
-    (argument checks, output allocation, the C call); the C call alone on
-    outputs and scratch allocated once (kernel attributes, the launches of
-    the kernel and of the merge of its column ranges)."""
-    dev = a.device
-    (M, D), N = a.shape, b.shape[0]
-    bn = match_mod._bnorm(b, mb)[None]
-    splits = match_mod.column_splits(1, M, N, match_mod._sm_count(dev.index))
-    outs = [torch.empty((1, M), dtype=t, device=dev)
-            for t in (torch.float32, torch.int32, torch.float32)]
-    part = torch.empty(((3 * splits + 1) * M,), device=dev)
-    fn = match_mod._lib()
-    args = (int(bf16), 0, ab.data_ptr(), bb.data_ptr(), bn.data_ptr(),
-            match_mod._single_pair(dev.index).data_ptr(), 1, M, N, D, splits,
-            *(t.data_ptr() for t in outs), part.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check(fn(*args) == 0, "the single-pair C call failed")
+    ``l2_top2`` (argument checks, output allocation, the C call) and its C
+    call alone (tensor maps, the prologue's and the cluster's launches)."""
     return {
         "wrapper": host_us(lambda: match_mod.l2_top2(a, b, mb, bf16=bf16)),
-        "launch": host_us(lambda: match_mod._launch(ab[None], bb[None], bn,
-                                                    None)),
-        "c_call": host_us(lambda: fn(*args)),
+        "c_call": host_us(pair_c_call(match_mod, a, b, mb, bf16)),
     }
 
 
@@ -668,11 +691,12 @@ def phase_kernels(desc, mask, parr, usage):
             check(row["tflops"] * 1e12 > PEAK_F32_FLOPS,
                   f"K1 bf16 at {row['tflops']:.1f} TFLOP/s is not above the "
                   f"FFMA peak: not on the tensor cores")
-    # single pair with ragged M != N (no tile divides either); split over
-    # column ranges to fill the card
-    a = desc[0, :4000].contiguous()
-    b = desc[1, :3001].contiguous()
-    mb = mask[1, :3001].contiguous()
+    # single pair with ragged M != N (no tile divides either): clusters of
+    # ranks over the columns fill the card
+    from regard3d_tpu_torch.tools import kernel_report
+    a = desc[0, :K2_M].contiguous()
+    b = desc[1, :K2_N].contiguous()
+    mb = mask[1, :K2_N].contiguous()
     for bf16 in (False, True):
         ab, bb = ((a.to(torch.bfloat16), b.to(torch.bfloat16)) if bf16
                   else (a, b))
@@ -686,8 +710,25 @@ def phase_kernels(desc, mask, parr, usage):
                     M=a.shape[0], Nn=b.shape[0],
                     in_bytes=(a.numel() + b.numel()) * 4 + mb.numel(),
                     out_words=3, bf16=bf16, replaces=K2, compare=top2(bf16))
-        row["host_us"] = host_split(match_mod, a, b, mb, ab, bb, bf16)
-        log(f"(c) {row['name']}: host us per call {row['host_us']}")
+        row["call_ms"] = cuda_ms(pair_c_call(match_mod, a, b, mb, bf16),
+                                 reps=20)
+        row["host_us"] = host_split(match_mod, a, b, mb, bf16)
+        ops = kernel_report.device_ops(
+            lambda x=bf16: match_mod.l2_top2(a, b, mb, bf16=x))
+        row["kernels_per_call"] = len(ops)
+        row["kernel_names"] = [o.replace("(anonymous namespace)::", "")
+                               .replace("void ", "").split("(")[0]
+                               for o, _ in ops]
+        row["device_us_per_call"] = sum(us for _, us in ops)
+        log(f"(c) {row['name']}: C call {row['call_ms']:.4f} ms, host us "
+            f"per call {row['host_us']}, {len(ops)} device operations a "
+            f"call: {row['kernel_names']}, "
+            f"{row['device_us_per_call']:.1f} us of device time")
+        check(len(ops) == 2 and any("l2_top2_prep_kernel" in o
+                                    for o, _ in ops)
+              and not any("merge_splits" in o for o, _ in ops),
+              f"{row['name']}: one call ran {ops}, not the prologue and "
+              f"one cluster launch")
     # K3: the ablations against their plain versions at the kernel's tile_n;
     # mm_only's library call is torch.bmm of the same bf16 operands (K1's),
     # min_only has none (it would take baddbmm + amin)
@@ -734,38 +775,74 @@ def phase_kernels(desc, mask, parr, usage):
     return rows
 
 
-def phase_ties(desc):
-    """(c) exact ties in a split single-pair call: duplicate B rows inside
-    one mma tile (columns 9 and 11, one n8 tile, two lanes) and in two
-    column ranges (5 and 2000): i1 is the lowest column and d2 == d1, in
-    both dtypes, as in ``tests/test_torch_match.py``."""
+def phase_ties(desc, mask):
+    """(c) exact ties in a single-pair call split over cluster ranks:
+    duplicate B rows inside one mma tile (columns 9 and 11, one n8 tile,
+    two lanes) and in two ranks' column ranges (5 and 2000): i1 is the
+    lowest column and d2 == d1, in both dtypes, as the plain version of the
+    ranks' merge (``l2_top2_ranks_plain``) and ``tests/test_torch_match.py``
+    have it. K2 from 4 threads on one stream (sharing its workspace) gives
+    each call's single result bit for bit. Then the public ``match_pair``
+    on CUDA tensors: K2 launched once, its matches those of
+    ``use_kernel=False`` on >= 99.9% of rows."""
     from regard3d_tpu_torch.kernels import match as match_mod
     a = desc[0, :256].contiguous()
-    b = desc[1, :3001].clone()
+    b = desc[1, :K2_N].clone()
     b[5] = a[0] + 0.01
     b[2000] = b[5]
     b[9] = a[1] + 0.01
     b[11] = b[9]
     mb = torch.ones(b.shape[0], dtype=torch.bool, device=b.device)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits = match_mod.column_splits(1, a.shape[0], b.shape[0], sms)
-    check(splits > 1, "the tie case is not split")
-    per = -(-(-(-b.shape[0] // 128)) // splits) * 128   # columns a range
-    check(5 // per != 2000 // per, "columns 5 and 2000 share a range")
     for bf16 in (False, True):
+        ranks, per = match_mod.plan(a.device, bf16, 1, a.shape[0], K2_N,
+                                    a.shape[1])
+        cols = per * match_mod.TILE_N               # columns a rank
+        check(ranks > 1 and 5 // cols != 2000 // cols,
+              f"columns 5 and 2000 share a rank ({ranks} ranks of {cols})")
         got = match_mod.l2_top2(a, b, mb, bf16=bf16)
         torch.cuda.synchronize()
-        want = match_mod.l2_top2_plain(a, b, mb, bf16=bf16)
         name = f"ties_{'bf16' if bf16 else 'f32'}"
-        _compare(name, tuple(t[None] for t in got),
-                 tuple(t[None] for t in want), 1e-4, 1e-5)
+        for want in (match_mod.l2_top2_plain(a, b, mb, bf16=bf16),
+                     match_mod.l2_top2_ranks_plain(a, b, mb, ranks, bf16)):
+            _compare(name, tuple(t[None] for t in got),
+                     tuple(t[None] for t in want), 1e-4, 1e-5)
         d1, i1, d2 = (t.cpu() for t in got)
         check(int(i1[0]) == 5 and int(i1[1]) == 9,
               f"{name}: i1 {int(i1[0])}, {int(i1[1])} (want 5, 9)")
         check(bool(d1[0] == d2[0]) and bool(d1[1] == d2[1]),
               f"{name}: d2 != d1 on a tie")
-    log(f"(c) ties: lowest column and d2 == d1 in f32 and bf16, "
-        f"{splits} column ranges of {per} columns")
+        log(f"(c) {name}: lowest column and d2 == d1 over {ranks} cluster "
+            f"ranks of {cols} columns")
+    # threads calling on one stream share its workspace: every call's
+    # result is the one it gives alone, bit for bit
+    B = desc.shape[0]
+    jobs = [(desc[i, :K2_M].contiguous(), desc[(i + 1) % B, :K2_N].contiguous(),
+             mask[(i + 1) % B, :K2_N].contiguous(), bool(i % 2))
+            for i in range(4)]
+    alone = [match_mod.l2_top2(a, b, mb, bf16=x) for a, b, mb, x in jobs]
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        runs = list(pool.map(lambda j: [match_mod.l2_top2(
+            j[0], j[1], j[2], bf16=j[3]) for _ in range(8)], jobs))
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for one, rs in zip(alone, runs) for r in rs
+              for x, y in zip(one, r)),
+          "K2 calls from 4 threads on one stream differ from single calls")
+    log("(c) K2 from 4 threads on one stream (f32 and bf16, 8 calls each): "
+        "bit-identical to single calls")
+    # the public single-pair matcher on the card
+    a, ma = desc[0, :K2_M].contiguous(), mask[0, :K2_M].contiguous()
+    b, mb = desc[1, :K2_N].contiguous(), mask[1, :K2_N].contiguous()
+    before = match_mod.LAUNCHES["l2_top2_f32"]
+    got = match_mod.match_pair(a, ma, b, mb)
+    torch.cuda.synchronize()
+    want = match_mod.match_pair(a, ma, b, mb, use_kernel=False)
+    check(match_mod.LAUNCHES["l2_top2_f32"] == before + 1,
+          "match_pair did not launch K2 once")
+    same = float(((got[0] == want[0]) & (got[2] == want[2])).float().mean())
+    check(same >= 0.999, f"match_pair: idx and ok agree on {same:.5f}")
+    log(f"(c) match_pair ({K2_M} x {K2_N}): K2 launched once, idx and ok "
+        f"equal to use_kernel=False on {same:.6f} of rows, "
+        f"{int(got[2].sum())} matches")
 
 
 def phase_wide(desc, mask, parr):
@@ -1564,7 +1641,7 @@ def trace_kernel_launches(path):
         text = fh.read()
     dec = json.JSONDecoder()
     counts = collections.Counter()
-    for tag in ("l2_top2", "merge_splits_kernel"):
+    for tag in ("l2_top2",):
         pos = text.find(tag)
         while pos >= 0:
             start = text.rfind("{", 0, pos)
@@ -2166,7 +2243,7 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     pairs = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
     parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
     rows = phase_kernels(descs.data, descs.mask, parr, usage)
-    phase_ties(descs.data)
+    phase_ties(descs.data, descs.mask)
     phase_wide(descs.data, descs.mask, parr)
     stamp("(c)")
     phase_profile(ds, work)

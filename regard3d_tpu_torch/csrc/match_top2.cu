@@ -6,8 +6,8 @@
 //       (_match_block_kernel): a block of P image pairs read through a
 //       (P, 2) pair table out of one (B, N, D) descriptor array;
 //   K2  regard3d_tpu/kernels/match.py:l2_top2_pallas (_match_kernel): one
-//       (M, D) x (N, D) pair, served here as the P = 1 call with separate
-//       A and B base pointers;
+//       (M, D) x (N, D) pair with a mask on B, its own entry point: a fused
+//       prologue kernel and one cluster launch of the K1 bodies with P = 1;
 //   K3  tools/profile_matcher.py:_ablated_block (_ablate_kernel): K1's bf16
 //       grid with the top-2 merge ablated, as two epilogue modes of the bf16
 //       kernel below (MM_ONLY, MIN_ONLY), so they share its tiling exactly.
@@ -79,15 +79,39 @@
 //     registers without spills. The two warpgroups' top-2 meet in shared
 //     memory at the end.
 //   * Small grids (K2: 4000 rows make 32 row tiles for 132 SMs): the
-//     columns are split into S ranges, blockIdx.z picks one; each block
-//     writes a partial (d1, i1, d2) into caller-allocated scratch and a
-//     small merge kernel combines the ranges in increasing order with the
-//     index-aware tie rule (an exact tie across ranges keeps the lower
-//     column and gives d2 == d1). Both dtypes; FULL mode only (the K3 modes
-//     time K1's grid, which needs no split).
+//     columns are split over the R ranks of a thread-block cluster
+//     (cudaLaunchKernelEx with a cluster dimension along z, R <= 8, so
+//     blockIdx.z is the rank and the R blocks sit on R SMs of one GPC). The
+//     ranks of a cluster share one 128-row tile of A; rank r walks a
+//     contiguous range of whole column tiles, publishes its partial (d1,
+//     i1, d2) per row in its shared memory, and after a cluster barrier
+//     rank r merges rows [128 r / R, 128 (r+1) / R)
+//     over all ranks through distributed shared memory (mapa +
+//     ld.shared::cluster), in increasing rank, that is column, order, with
+//     the index-aware tie rule (an exact tie across ranks keeps the lower
+//     column and gives d2 == d1), and stores them. A second cluster barrier
+//     keeps every block resident until its peers have read it. One launch,
+//     no scratch in device memory, no merge kernel. The caller picks R from
+//     how many clusters the card holds (cudaOccupancyMaxActiveClusters: an
+//     H100's GPCs hold 30 clusters of 4 such blocks, 39 of 3), so K2's
+//     (4000, 3001) call is one wave: 32 clusters of 3 ranks x 8 tiles.
+//     Both dtypes; FULL mode only (the K3 modes time K1's grid, which needs
+//     no split). With R = 1 a block stores its rows itself, as K1 does.
+//     The rank is blockIdx.z, as in the earlier split over blockIdx.z:
+//     with the ranks folded into blockIdx.x instead, ptxas scheduled K1's
+//     f32 loop otherwise and K1 f32 ran 2.5-2.9% slower.
+//   * K2's prologue (l2_top2_prep_kernel, a warp a row): |b|^2 from the
+//     values as given under the mask, and with `round` the bf16 copies of
+//     both f32 operands that the tensor-core kernel's tensor maps read, in
+//     one pass over A and B (4 MB at K2's shape) into a caller-allocated
+//     workspace. Done once a call here, where doing it in the main kernel's
+//     producer warps would repeat it in every row-tile cluster (32 times at
+//     K2's shape) and, for bf16, write the 128-byte swizzle from the
+//     generic proxy behind an extra ring stage.
 // The tensor maps are encoded on the host for every call
 // (cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPointByVersion
-// so the library needs no -lcuda) and passed as __grid_constant__
+// so the library needs no -lcuda; a cache of them saved no host time that
+// stood out from the host's noise) and passed as __grid_constant__
 // parameters. The caller does not pass the image counts, so a map's image
 // extent is 2^31: TMA bounds the rows and columns, the caller the pair
 // indices.
@@ -114,6 +138,8 @@ constexpr int F32_SLICE = TM * F32_KS * 4;  // bytes of one tile's slice
 constexpr float BIG = 3.0e38f;
 constexpr int MAX_SMEM = 227 * 1024;
 constexpr int MAX_DEVICES = 64;   // devices whose kernel attributes are cached
+constexpr int MAX_RANKS = 8;      // blocks of a cluster (the portable limit)
+constexpr int PREP_THREADS = 256; // the prologue's block: a warp a row
 constexpr unsigned IMAGES = 1u << 31;  // image extent of a tensor map
 
 enum Mode { FULL = 0, MM_ONLY = 1, MIN_ONLY = 2 };
@@ -141,26 +167,6 @@ __device__ __forceinline__ void merge(float& d1, int& i1, float& d2,
     i1 = oi1;
   } else {
     d2 = fminf(d2, od1);
-  }
-}
-
-// Final (d1 + |a|^2, i1, d2 + |a|^2), clamped at 0, or with a column split
-// the raw partial of range blockIdx.z (and |a|^2 from range 0) into
-// part = [S][3][P*M] words + [P*M] |a|^2.
-__device__ __forceinline__ void store_top2(long long o, long long PM,
-                                           float d1, int i1, float d2,
-                                           float an, float* d1o, int* i1o,
-                                           float* d2o, float* part) {
-  if (part == nullptr) {
-    d1o[o] = fmaxf(d1 + an, 0.f);
-    i1o[o] = i1;
-    d2o[o] = fmaxf(d2 + an, 0.f);
-  } else {
-    float* q = part + 3LL * blockIdx.z * PM;
-    q[o] = d1;
-    reinterpret_cast<int*>(q)[PM + o] = i1;
-    q[2 * PM + o] = d2;
-    if (blockIdx.z == 0) part[3LL * gridDim.z * PM + o] = an;
   }
 }
 
@@ -291,6 +297,73 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da,
 #undef R4
 
 // ---------------------------------------------------------------------------
+// clusters: the ranks of one row tile merge their column ranges
+// ---------------------------------------------------------------------------
+
+// every non-exited thread of the cluster arrives (release) and waits
+// (acquire): shared-memory writes before it are seen by peers after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the 32-bit word at shared address `addr` of this block, read in the
+// block of cluster rank `rank` (distributed shared memory)
+__device__ __forceinline__ uint32_t ld_rank(uint32_t addr, int rank) {
+  uint32_t remote, v;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;\n"
+      : "=r"(remote)
+      : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.b32 %0, [%1];\n" : "=r"(v) : "r"(remote));
+  return v;
+}
+
+// Row rl (r = row0 + rl, output o) with the block's top-2 (d1, i1, d2)
+// over its columns and |a|^2 an. One rank: the block stores the row, final
+// (d1 + |a|^2, i1, d2 + |a|^2) clamped at 0. R ranks: every rank publishes
+// its partial in red ([3][TM] words of shared memory); rank rl * R / TM
+// merges the row over the ranks in increasing rank (column) order and
+// stores it. Every thread that holds a row calls this, in every rank.
+__device__ __forceinline__ void finish_row(int rl, int r, int M, long long o,
+                                           float d1, int i1, float d2,
+                                           float an, float* red, int ranks,
+                                           int rank, float* d1o, int* i1o,
+                                           float* d2o) {
+  if (ranks > 1) {
+    red[rl] = d1;
+    reinterpret_cast<int*>(red)[TM + rl] = i1;
+    red[2 * TM + rl] = d2;
+    cluster_sync();
+    const bool mine = rl * ranks / TM == rank;
+    if (mine) {
+      // every rank's partial in flight at once, then merged in rank order
+      const uint32_t base = smem_u32(red) + 4 * rl;
+      uint32_t w[MAX_RANKS][3];
+#pragma unroll
+      for (int q = 0; q < MAX_RANKS; ++q)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          if (q < ranks) w[q][k] = ld_rank(base + 4 * TM * k, q);
+      d1 = __uint_as_float(w[0][0]);
+      i1 = (int)w[0][1];
+      d2 = __uint_as_float(w[0][2]);
+#pragma unroll
+      for (int q = 1; q < MAX_RANKS; ++q)
+        if (q < ranks)
+          merge(d1, i1, d2, __uint_as_float(w[q][0]), (int)w[q][1],
+                __uint_as_float(w[q][2]));
+    }
+    // no block exits while a peer may still read its red
+    cluster_sync();
+    if (!mine) return;
+  }
+  if (r >= M) return;
+  d1o[o] = fmaxf(d1 + an, 0.f);
+  i1o[o] = i1;
+  d2o[o] = fmaxf(d2 + an, 0.f);
+}
+
+// ---------------------------------------------------------------------------
 // bf16 tensor-core kernel (K1 bf16, K2 bf16, K3)
 // ---------------------------------------------------------------------------
 
@@ -418,9 +491,9 @@ l2_top2_wgmma_kernel(__grid_constant__ const CUtensorMap a128,
                      const __nv_bfloat16* __restrict__ A,
                      const float* __restrict__ bnorm,
                      const int* __restrict__ pairs, int M, int N, int Drt,
-                     int tiles_per_split, float* __restrict__ out_d1,
+                     int tiles_per_rank, float* __restrict__ out_d1,
                      int* __restrict__ out_i1, float* __restrict__ out_d2,
-                     float* __restrict__ part, int keep_live) {
+                     int keep_live) {
   extern __shared__ unsigned char smem_raw[];
   const int D = DC > 0 ? DC : Drt;
   const Bf16Tile tl(D);
@@ -436,14 +509,19 @@ l2_top2_wgmma_kernel(__grid_constant__ const CUtensorMap a128,
   // tile's and |a|^2's
   const uint32_t a_full = bars + 16 * STAGES;
   const uint32_t an_full = a_full + 8;
+  // the cluster's partials, [3][TM] words after the barriers
+  float* red = reinterpret_cast<float*>(smem + (1 + STAGES) * tl.bytes +
+                                        (STAGES * TN + TM) * 4 +
+                                        8 * (2 * STAGES + 2));
 
+  // blockIdx.z is the rank: a cluster spans z
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * TM;
   const int ia = pairs[2 * p];
   const int ib = pairs[2 * p + 1];
   const int ntiles = (N + TN - 1) / TN;
-  const int t0 = blockIdx.z * tiles_per_split;
-  const int n = min(t0 + tiles_per_split, ntiles) - t0;   // tiles of the range
+  const int t0 = blockIdx.z * tiles_per_rank;
+  const int n = min(t0 + tiles_per_rank, ntiles) - t0;    // tiles of the range
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
@@ -578,16 +656,15 @@ l2_top2_wgmma_kernel(__grid_constant__ const CUtensorMap a128,
   if (t >= 2) return;
   const int rl = arow0 + 16 * (warp & 3) + g + 8 * t;
   const int r = row0 + rl;
-  if (MODE == FULL) mbar_wait(an_full, 0);
-  if (r >= M) return;
   const long long o = (long long)p * M + r;
   const float rd1 = t ? d1[1] : d1[0];
   if (MODE != FULL) {
-    out_d1[o] = rd1;
+    if (r < M) out_d1[o] = rd1;
     return;
   }
-  store_top2(o, (long long)gridDim.y * M, rd1, t ? i1[1] : i1[0],
-             t ? d2[1] : d2[0], ans[rl], out_d1, out_i1, out_d2, part);
+  mbar_wait(an_full, 0);
+  finish_row(rl, r, M, o, rd1, t ? i1[1] : i1[0], t ? d2[1] : d2[0], ans[rl],
+             red, gridDim.z, blockIdx.z, out_d1, out_i1, out_d2);
 }
 
 // ---------------------------------------------------------------------------
@@ -605,9 +682,8 @@ l2_top2_f32_kernel(__grid_constant__ const CUtensorMap amap,
                    const float* __restrict__ A,
                    const float* __restrict__ bnorm,
                    const int* __restrict__ pairs, int M, int N, int D,
-                   int tiles_per_split, float* __restrict__ out_d1,
-                   int* __restrict__ out_i1, float* __restrict__ out_d2,
-                   float* __restrict__ part) {
+                   int tiles_per_rank, float* __restrict__ out_d1,
+                   int* __restrict__ out_i1, float* __restrict__ out_d2) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -619,13 +695,14 @@ l2_top2_f32_kernel(__grid_constant__ const CUtensorMap amap,
   const uint32_t bars = smem_u32(ans + TM);    // full, empty, |a|^2's
   const uint32_t an_full = bars + 16 * F32_STAGES;
 
+  // blockIdx.z is the rank: a cluster spans z
   const int p = blockIdx.y;
   const int row0 = blockIdx.x * TM;
   const int ia = pairs[2 * p];
   const int ib = pairs[2 * p + 1];
   const int ntiles = (N + TN - 1) / TN;
-  const int t0 = blockIdx.z * tiles_per_split;
-  const int t1 = min(t0 + tiles_per_split, ntiles);
+  const int t0 = blockIdx.z * tiles_per_rank;
+  const int t1 = min(t0 + tiles_per_rank, ntiles);
   const int cend = min(N, t1 * TN);   // columns past it are not this range's
   const int nsteps = max(t1 - t0 + 1, 0) / 2;
   const int nslices = (D + F32_KS - 1) / F32_KS;
@@ -784,33 +861,73 @@ l2_top2_f32_kernel(__grid_constant__ const CUtensorMap amap,
         other[2 * TM + rl]);
   const int r = row0 + rl;
   mbar_wait(an_full, 0);
-  if (r >= M) return;
-  store_top2((long long)p * M + r, (long long)gridDim.y * M, rd1, ri1, rd2,
-             ans[rl], out_d1, out_i1, out_d2, part);
+  // the warpgroup's own slot of red holds the cluster's partials
+  finish_row(rl, r, M, (long long)p * M + r, rd1, ri1, rd2, ans[rl], mine,
+             gridDim.z, blockIdx.z, out_d1, out_i1, out_d2);
 }
 
 // ---------------------------------------------------------------------------
-// merge of the column ranges of a split call
+// K2's prologue
 // ---------------------------------------------------------------------------
 
-__global__ void merge_splits_kernel(const float* __restrict__ part, int S,
-                                    long long PM, float* __restrict__ out_d1,
-                                    int* __restrict__ out_i1,
-                                    float* __restrict__ out_d2) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= PM) return;
-  const int* ipart = reinterpret_cast<const int*>(part);
-  float d1 = part[o];
-  int i1 = ipart[PM + o];
-  float d2 = part[2 * PM + o];
-  for (int s = 1; s < S; ++s) {
-    const long long b = 3LL * s * PM;
-    merge(d1, i1, d2, part[b + o], ipart[b + PM + o], part[b + 2 * PM + o]);
+// A warp a row: rows 0..N-1 of B get bnorm = |b|^2 of their values as
+// given (f32, or bf16 when bf16_in), 3e38 where mask is 0; with A16/B16 set
+// (f32 in) the rows of B and then of A are also rounded to bf16 there. Lane
+// l takes the 16-byte chunks l, l + 32, ... of a row; a shuffle tree sums
+// them. The call's pair table (0, 0) goes to `pair`.
+__global__ void __launch_bounds__(PREP_THREADS)
+l2_top2_prep_kernel(const void* __restrict__ A, const void* __restrict__ B,
+                    const unsigned char* __restrict__ mask, int M, int N,
+                    int D, int bf16_in, __nv_bfloat16* __restrict__ A16,
+                    __nv_bfloat16* __restrict__ B16,
+                    float* __restrict__ bnorm, int* __restrict__ pair) {
+  if (blockIdx.x == 0 && threadIdx.x < 2) pair[threadIdx.x] = 0;
+  const long long w =
+      ((long long)blockIdx.x * PREP_THREADS + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  const bool rnd = A16 != nullptr;
+  if (w >= N + (rnd ? (long long)M : 0)) return;      // whole warps
+  const bool isb = w < N;
+  const long long row = isb ? w : w - N;
+  float s = 0.f;
+  if (bf16_in) {
+    const uint4* src = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(B) + row * D);
+    for (int c = lane; c < D / 8; c += 32) {
+      const uint4 v = __ldg(src + c);
+      const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&w4[u]));
+        s = fmaf(f.x, f.x, s);
+        s = fmaf(f.y, f.y, s);
+      }
+    }
+  } else {
+    const float4* src = reinterpret_cast<const float4*>(
+        static_cast<const float*>(isb ? B : A) + row * D);
+    __nv_bfloat162* dst =
+        rnd ? reinterpret_cast<__nv_bfloat162*>((isb ? B16 : A16) + row * D)
+            : nullptr;
+    for (int c = lane; c < D / 4; c += 32) {
+      const float4 v = __ldg(src + c);
+      s = fmaf(v.x, v.x, s);
+      s = fmaf(v.y, v.y, s);
+      s = fmaf(v.z, v.z, s);
+      s = fmaf(v.w, v.w, s);
+      if (rnd) {
+        // round to nearest even, as torch's .to(torch.bfloat16)
+        dst[2 * c] = __floats2bfloat162_rn(v.x, v.y);
+        dst[2 * c + 1] = __floats2bfloat162_rn(v.z, v.w);
+      }
+    }
   }
-  const float an = part[3LL * S * PM + o];
-  out_d1[o] = fmaxf(d1 + an, 0.f);
-  out_i1[o] = i1;
-  out_d2[o] = fmaxf(d2 + an, 0.f);
+  if (!isb) return;                                   // whole warps
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) bnorm[row] = mask[row] ? s : BIG;
 }
 
 // ---------------------------------------------------------------------------
@@ -861,15 +978,18 @@ cudaError_t make_map(CUtensorMap* map, const void* base, bool bf16, int rows,
 int bf16_stages(int D) { return D == 144 ? BF16_STAGES_144 : BF16_STAGES_RT; }
 
 // dynamic shared memory of the bf16 kernel: alignment slack, the A tile and
-// the ring of B tiles, their |b|^2, the barriers
+// the ring of B tiles, their |b|^2, |a|^2, the barriers, the cluster's
+// partials
 int bf16_smem(int D) {
   const int st = bf16_stages(D);
   return 1024 + (1 + st) * TM * D * 2 + (st * TN + TM) * 4 +
-         8 * (2 * st + 2);
+         8 * (2 * st + 2) + 3 * TM * 4;
 }
 
 constexpr int F32_SMEM = 1024 + F32_STAGES * 3 * F32_SLICE +
                          (2 * 3 + 1) * TM * 4 + 8 * (2 * F32_STAGES + 1);
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // the kernel's attributes, set once per device rather than before every
 // launch: its dynamic shared memory and all of the SM's 228 KB as shared
@@ -892,15 +1012,32 @@ cudaError_t set_attributes(K kernel, int smem,
   return e;
 }
 
+// a launch of THREADS-thread blocks, as clusters of `ranks` blocks along z
+// when ranks > 1 (grid.z == ranks: blockIdx.z is the cluster rank)
+cudaLaunchConfig_t config(dim3 grid, int ranks, int smem, cudaStream_t s,
+                          cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = ranks;
+  cfg.attrs = attr;
+  cfg.numAttrs = ranks > 1 ? 1 : 0;
+  return cfg;
+}
+
 template <int MODE, int DC>
-cudaError_t launch_wgmma_d(dim3 grid, cudaStream_t s, const void* A,
-                           const void* B, const float* bnorm,
-                           const int* pairs, int M, int N, int D, int tps,
-                           float* d1, int* i1, float* d2, float* part) {
+cudaError_t launch_wgmma_d(dim3 grid, int ranks, int per, cudaStream_t s,
+                           const void* A, const void* B, const float* bnorm,
+                           const int* pairs, int M, int N, int D, float* d1,
+                           int* i1, float* d2) {
   constexpr int ST = DC == 144 ? BF16_STAGES_144 : BF16_STAGES_RT;
   static std::atomic<bool> ready[MAX_DEVICES];
   auto kernel = l2_top2_wgmma_kernel<MODE, DC, ST>;
-  const int smem = bf16_smem(D);
   cudaError_t e = set_attributes(kernel, MAX_SMEM, ready);
   CUtensorMap a128, a32, b128, b32;
   if (e == cudaSuccess)
@@ -912,28 +1049,30 @@ cudaError_t launch_wgmma_d(dim3 grid, cudaStream_t s, const void* A,
   if (e == cudaSuccess)
     e = make_map(&b32, B, true, N, D, 16, CU_TENSOR_MAP_SWIZZLE_32B);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, s>>>(
-      a128, a32, b128, b32, static_cast<const __nv_bfloat16*>(A), bnorm,
-      pairs, M, N, D, tps, d1, i1, d2, part, /*keep_live=*/0);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(grid, ranks, bf16_smem(D), s, &attr);
+  return cudaLaunchKernelEx(&cfg, kernel, a128, a32, b128, b32,
+                            static_cast<const __nv_bfloat16*>(A), bnorm,
+                            pairs, M, N, D, per, d1, i1, d2,
+                            /*keep_live=*/0);
 }
 
 template <int MODE>
-cudaError_t launch_wgmma(dim3 grid, cudaStream_t s, const void* A,
-                         const void* B, const float* bnorm, const int* pairs,
-                         int M, int N, int D, int tps, float* d1, int* i1,
-                         float* d2, float* part) {
+cudaError_t launch_wgmma(dim3 grid, int ranks, int per, cudaStream_t s,
+                         const void* A, const void* B, const float* bnorm,
+                         const int* pairs, int M, int N, int D, float* d1,
+                         int* i1, float* d2) {
   if (D == 144)
-    return launch_wgmma_d<MODE, 144>(grid, s, A, B, bnorm, pairs, M, N, D,
-                                     tps, d1, i1, d2, part);
-  return launch_wgmma_d<MODE, 0>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
-                                 d1, i1, d2, part);
+    return launch_wgmma_d<MODE, 144>(grid, ranks, per, s, A, B, bnorm, pairs,
+                                     M, N, D, d1, i1, d2);
+  return launch_wgmma_d<MODE, 0>(grid, ranks, per, s, A, B, bnorm, pairs, M,
+                                 N, D, d1, i1, d2);
 }
 
-cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* A,
-                       const void* B, const float* bnorm, const int* pairs,
-                       int M, int N, int D, int tps, float* d1, int* i1,
-                       float* d2, float* part) {
+cudaError_t launch_f32(dim3 grid, int ranks, int per, cudaStream_t s,
+                       const void* A, const void* B, const float* bnorm,
+                       const int* pairs, int M, int N, int D, float* d1,
+                       int* i1, float* d2) {
   static std::atomic<bool> ready[MAX_DEVICES];
   cudaError_t e = set_attributes(l2_top2_f32_kernel, F32_SMEM, ready);
   CUtensorMap am, bm;
@@ -942,61 +1081,150 @@ cudaError_t launch_f32(dim3 grid, cudaStream_t s, const void* A,
   if (e == cudaSuccess)
     e = make_map(&bm, B, false, N, D, F32_KS, CU_TENSOR_MAP_SWIZZLE_128B);
   if (e != cudaSuccess) return e;
-  l2_top2_f32_kernel<<<grid, THREADS, F32_SMEM, s>>>(
-      am, bm, static_cast<const float*>(A), bnorm, pairs, M, N, D, tps, d1,
-      i1, d2, part);
-  return cudaGetLastError();
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(grid, ranks, F32_SMEM, s, &attr);
+  return cudaLaunchKernelEx(&cfg, l2_top2_f32_kernel, am, bm,
+                            static_cast<const float*>(A), bnorm, pairs, M, N,
+                            D, per, d1, i1, d2);
 }
+
+// checks and launches one call of the top-2 kernels (see r3d_l2_top2);
+// `ranks` becomes the most ranks of ceil(ntiles / ranks) column tiles that
+// leave none empty
+cudaError_t run_top2(int dtype, int mode, const void* A, const void* B,
+                     const float* bnorm, const int* pairs, int P, int M,
+                     int N, int D, int ranks, float* d1, int* i1, float* d2,
+                     cudaStream_t s) {
+  if (P <= 0 || M <= 0 || N <= 0 || D <= 0 || D % 16 != 0 || ranks < 1 ||
+      ranks > MAX_RANKS)
+    return cudaErrorInvalidValue;
+  if (mode != FULL && (dtype != 1 || ranks != 1 || mode > MIN_ONLY))
+    return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16)
+    return cudaErrorInvalidValue;
+  // the bf16 kernel's A tile, its ring of B tiles (two at a run-time D),
+  // their |b|^2 and the cluster's partials must fit in 227 KB of shared
+  // memory: D <= 288
+  if (dtype == 1 && bf16_smem(D) > MAX_SMEM) return cudaErrorInvalidValue;
+  const int ntiles = cdiv(N, TN);
+  const int per = cdiv(ntiles, ranks);
+  ranks = cdiv(ntiles, per);
+  const dim3 grid(cdiv(M, TM), P, ranks);
+  if (dtype == 0)
+    return launch_f32(grid, ranks, per, s, A, B, bnorm, pairs, M, N, D, d1,
+                      i1, d2);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if (mode == FULL)
+    return launch_wgmma<FULL>(grid, ranks, per, s, A, B, bnorm, pairs, M, N,
+                              D, d1, i1, d2);
+  if (mode == MM_ONLY)
+    return launch_wgmma<MM_ONLY>(grid, ranks, per, s, A, B, bnorm, pairs, M,
+                                 N, D, d1, i1, d2);
+  return launch_wgmma<MIN_ONLY>(grid, ranks, per, s, A, B, bnorm, pairs, M,
+                                N, D, d1, i1, d2);
+}
+
+// K2's workspace: the pair table (0, 0) in 16 bytes, then |b|^2 (16-byte
+// aligned for TMA), then with rounding the bf16 operands
+constexpr long long PAIR_BYTES = 16;
+long long bnorm_bytes(int N) { return ((long long)N * 4 + 15) / 16 * 16; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. mode: 0 = FULL, 1 = MM_ONLY,
-// 2 = MIN_ONLY (bf16 only, splits == 1, writes only d1).
+// 2 = MIN_ONLY (bf16 only, ranks == 1, writes only d1).
 // A: (*, M, D), B: (*, N, D) row-major, 16-byte aligned; bnorm: (*, N) f32;
 // pairs: (P, 2) int32 image indices into A and B. Outputs d1, d2: (P, M)
-// f32 and i1: (P, M) int32. splits > 1 splits the columns into that many
-// ranges of whole 128-column tiles; part then holds (3 * splits + 1) * P * M
-// words of scratch. Launches on `stream` and returns cudaGetLastError()
-// (0 on success).
+// f32 and i1: (P, M) int32. ranks > 1 (at most 8) splits the columns over
+// the ranks of a thread-block cluster, each a range of whole 128-column
+// tiles; `unused` is not read (it held the scratch of an earlier column
+// split; the signature stays so that tools/kernel_report.py calls builds of
+// either). Launches on `stream` and returns the launch's error (0 on
+// success).
 extern "C" int r3d_l2_top2(int dtype, int mode, const void* A, const void* B,
                            const float* bnorm, const int* pairs, int P, int M,
-                           int N, int D, int splits, float* d1, int* i1,
-                           float* d2, float* part, void* stream) {
-  if (P <= 0 || M <= 0 || N <= 0 || D <= 0 || D % 16 != 0 || splits < 1)
+                           int N, int D, int ranks, float* d1, int* i1,
+                           float* d2, float* unused, void* stream) {
+  (void)unused;
+  return (int)run_top2(dtype, mode, A, B, bnorm, pairs, P, M, N, D, ranks,
+                       d1, i1, d2, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// Bytes of the workspace of r3d_l2_top2_pair: the pair table, |b|^2, then
+// with `round` the bf16 copies of A and B.
+extern "C" long long r3d_l2_top2_pair_workspace(int M, int N, int D,
+                                                int round) {
+  return PAIR_BYTES + bnorm_bytes(N) +
+         (round ? (long long)(M + N) * D * 2 : 0);
+}
+
+// K2, one FULL call on one pair: A (M, D), B (N, D) of type dtype (0 =
+// float32, 1 = bfloat16), row-major and 16-byte aligned, mask_b (N,) bytes
+// (0 = masked row of B); round = 1 (float32 only) rounds both operands to
+// bfloat16 for the tensor-core kernel, with |b|^2 from the f32 values.
+// Launches the prologue into `work` (r3d_l2_top2_pair_workspace bytes,
+// 16-byte aligned), then the top-2 kernel on `ranks` cluster ranks. Outputs
+// d1, d2: (M,) f32, i1: (M,) int32. Returns the first launch error (0 on
+// success).
+extern "C" int r3d_l2_top2_pair(int dtype, int round, const void* A,
+                                const void* B, const unsigned char* mask_b,
+                                int M, int N, int D, int ranks, void* work,
+                                float* d1, int* i1, float* d2, void* stream) {
+  if (M <= 0 || N <= 0 || D <= 0 || D % 16 != 0 || (dtype != 0 && round) ||
+      dtype < 0 || dtype > 1 || reinterpret_cast<uintptr_t>(work) % 16)
     return (int)cudaErrorInvalidValue;
-  if (mode != FULL && (dtype != 1 || splits != 1 || mode > MIN_ONLY))
-    return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(A) | reinterpret_cast<uintptr_t>(B)) % 16)
-    return (int)cudaErrorInvalidValue;
-  // the bf16 kernel's A tile, its ring of B tiles (two at a run-time D)
-  // and their |b|^2 must fit in 227 KB of shared memory: D <= 288
-  if (dtype == 1 && bf16_smem(D) > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const int ntiles = (N + TN - 1) / TN;
-  const int tps = (ntiles + splits - 1) / splits;
-  if (splits > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
-  float* scratch = splits > 1 ? part : nullptr;
-  const dim3 grid((M + TM - 1) / TM, P, splits);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  int* pair = static_cast<int*>(work);
+  float* bnorm = reinterpret_cast<float*>(static_cast<char*>(work) +
+                                          PAIR_BYTES);
+  __nv_bfloat16* A16 = nullptr;
+  __nv_bfloat16* B16 = nullptr;
+  if (round) {
+    A16 = reinterpret_cast<__nv_bfloat16*>(static_cast<char*>(work) +
+                                           PAIR_BYTES + bnorm_bytes(N));
+    B16 = A16 + (long long)M * D;
+  }
+  const long long rows = N + (round ? (long long)M : 0);
+  const long long blocks = (rows * 32 + PREP_THREADS - 1) / PREP_THREADS;
+  l2_top2_prep_kernel<<<(unsigned)blocks, PREP_THREADS, 0, s>>>(
+      A, B, mask_b, M, N, D, dtype, A16, B16, bnorm, pair);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  return (int)run_top2(round ? 1 : dtype, FULL, round ? A16 : A,
+                       round ? B16 : B, bnorm, pair, 1, M, N, D, ranks, d1,
+                       i1, d2, s);
+}
+
+// How many clusters of `ranks` blocks of the FULL kernel for (dtype, D)
+// the card can hold at once (cudaOccupancyMaxActiveClusters), in *count.
+extern "C" int r3d_l2_top2_clusters(int dtype, int D, int ranks, int* count) {
+  if (ranks < 1 || ranks > MAX_RANKS || D <= 0 || D % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = config(dim3(1, 1, ranks), ranks, 0, nullptr,
+                                  &attr);
+  cfg.numAttrs = 1;
   cudaError_t e;
   if (dtype == 0) {
-    e = launch_f32(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1, i1, d2,
-                   scratch);
-  } else if (dtype == 1) {
-    if (mode == FULL)
-      e = launch_wgmma<FULL>(grid, s, A, B, bnorm, pairs, M, N, D, tps, d1,
-                             i1, d2, scratch);
-    else if (mode == MM_ONLY)
-      e = launch_wgmma<MM_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
-                                d1, i1, d2, nullptr);
-    else
-      e = launch_wgmma<MIN_ONLY>(grid, s, A, B, bnorm, pairs, M, N, D, tps,
-                                 d1, i1, d2, nullptr);
+    static std::atomic<bool> ready[MAX_DEVICES];
+    cfg.dynamicSmemBytes = F32_SMEM;
+    e = set_attributes(l2_top2_f32_kernel, F32_SMEM, ready);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(count, l2_top2_f32_kernel, &cfg);
+  } else if (D == 144) {
+    static std::atomic<bool> ready[MAX_DEVICES];
+    auto kernel = l2_top2_wgmma_kernel<FULL, 144, BF16_STAGES_144>;
+    cfg.dynamicSmemBytes = bf16_smem(D);
+    e = set_attributes(kernel, MAX_SMEM, ready);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   } else {
-    return (int)cudaErrorInvalidValue;
+    static std::atomic<bool> ready[MAX_DEVICES];
+    auto kernel = l2_top2_wgmma_kernel<FULL, 0, BF16_STAGES_RT>;
+    cfg.dynamicSmemBytes = bf16_smem(D);
+    e = set_attributes(kernel, MAX_SMEM, ready);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(count, kernel, &cfg);
   }
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const long long PM = (long long)P * M;
-  merge_splits_kernel<<<(unsigned)((PM + 255) / 256), 256, 0, s>>>(
-      part, splits, PM, d1, i1, d2);
-  return (int)cudaGetLastError();
+  return (int)e;
 }

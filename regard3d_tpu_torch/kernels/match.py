@@ -5,12 +5,16 @@ TPU kernels (``l2_top2_block_pallas`` for a block of pairs, ``l2_top2_pallas``
 for one pair) and the ablated kernel of its matcher profile
 (``tools/profile_matcher.py:_ablated_block``) are served by one hand-written
 CUDA source, ``csrc/match_top2.cu``, built with nvcc at first use and called
-through a plain C interface: an f32 FFMA kernel, a bf16 tensor-core kernel
-with three epilogue modes, and a merge kernel for calls split over column
-ranges. Beside them, the ``*_plain`` functions compute the same functions
-the way the reference's CPU path does (``sqdist`` + masked top-2 by
-argmin-then-mask): the CPU tests use them and ``chip_smoke.py`` holds the
-kernels against them on the card.
+through a plain C interface: an f32 FFMA kernel and a bf16 tensor-core
+kernel with three epilogue modes. A call with too few row tiles to fill the
+card splits its columns over the ranks of a thread-block cluster, which
+merge their partial top-2 in shared memory (``cluster_plan``); the
+single-pair call (K2) has its own C entry, a fused prologue (|b|^2 under
+the mask, the bf16 operands) and one such launch, so its wrapper issues no
+torch work of its own. Beside them, the ``*_plain`` functions compute the
+same functions the way the reference's CPU path does (``sqdist`` + masked
+top-2 by argmin-then-mask): the CPU tests use them and ``chip_smoke.py``
+holds the kernels against them on the card.
 
 The wrappers pick by tensor device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (or raises); there is no fallback.
@@ -31,9 +35,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+import threading
+from typing import Dict, Sequence, Tuple
 
 import torch
+
+from regard3d_tpu_torch.kernels import _build
 
 _BIG = float(3.0e38)
 _SOURCE = "match_top2.cu"
@@ -42,17 +49,20 @@ _SOURCE = "match_top2.cu"
 # ablation ``mm_only`` reads the first column of every column tile
 TILE_M = TILE_N = 128
 # largest D of the bf16 kernel: with D set at run time its A tile and a
-# two-stage ring of B tiles (three 128 x D bf16 tiles), their |b|^2 and
-# |a|^2 fit in 227 KB of shared memory
+# two-stage ring of B tiles (three 128 x D bf16 tiles), their |b|^2, |a|^2
+# and the cluster's partials fit in 227 KB of shared memory
 MAX_BF16_DIM = 288
+# most blocks of a cluster (the portable limit): the ranks a call's columns
+# split over
+MAX_RANKS = 8
 
 ABLATIONS = ("mm_only", "min_only")
 _MODE = {"full": 0, "mm_only": 1, "min_only": 2}
 
 # launches of the CUDA kernels, per wrapper and operand dtype (plain
 # integers; reset by callers that want to show a run went through the
-# kernel). A call split over column ranges counts once: its merge kernel is
-# part of the same C call.
+# kernel). A single-pair call counts once: its prologue and its cluster
+# launch are one C call.
 LAUNCHES: Dict[str, int] = {
     **{f"{w}_{t}": 0 for w in ("l2_top2_block", "l2_top2")
        for t in ("f32", "bf16")},
@@ -146,6 +156,38 @@ def l2_top2_plain(desc_a, desc_b, mask_b, bf16: bool = False):
     return _top2_plain(desc_a, desc_b, _bnorm(desc_b, mask_b), bf16)
 
 
+def merge_top2(a, b):
+    """The kernels' merge of two partial top-2 results over disjoint column
+    sets, elementwise: a, b = (d1, i1, d2). The lower d1 wins, an exact tie
+    goes to the lower column and leaves d2 == d1."""
+    d1, i1, d2 = a
+    od1, oi1, od2 = b
+    take = (od1 < d1) | ((od1 == d1) & (oi1 < i1))
+    return (torch.where(take, od1, d1), torch.where(take, oi1, i1),
+            torch.where(take, torch.minimum(od2, d1),
+                        torch.minimum(d2, od1)))
+
+
+def l2_top2_ranks_plain(desc_a, desc_b, mask_b, ranks: int, bf16=False):
+    """Plain version of the cluster path of the single-pair call: the
+    columns in ``ranks`` contiguous ranges of whole ``TILE_N``-wide tiles
+    (as ``cluster_plan`` cuts them), the top-2 of each range, merged in
+    increasing range order by ``merge_top2``, |a|^2 added and clamped at 0
+    at the end. Returns (d1, i1, d2), each (M,)."""
+    ar, br = _operands(desc_a, bf16), _operands(desc_b, bf16)
+    bn = _bnorm(desc_b, mask_b)
+    d = torch.where(bn < _BIG, bn - 2.0 * (ar @ br.T), _BIG)
+    per = _cdiv(_cdiv(d.shape[1], TILE_N), ranks) * TILE_N
+    out = None
+    for c0 in range(0, d.shape[1], per):
+        vals, i1 = top2_ref(d[:, c0:c0 + per])
+        part = (vals[:, 0], i1.to(torch.int32) + c0, vals[:, 1])
+        out = part if out is None else merge_top2(out, part)
+    an = torch.sum(ar * ar, -1)
+    return (torch.clamp_min(out[0] + an, 0.0), out[1],
+            torch.clamp_min(out[2] + an, 0.0))
+
+
 def l2_top2_block_ablated_plain(desc, mask, pairs, mode: str,
                                 tile_n: int = TILE_N):
     """Plain version of the ablated block kernel (K3, bf16 operands, f32
@@ -176,7 +218,6 @@ def l2_top2_block_ablated_plain(desc, mask, pairs, mode: str,
 # ---------------------------------------------------------------------------
 
 def _lib():
-    from regard3d_tpu_torch.kernels import _build
     lib = _build.load_library(_SOURCE)
     fn = lib.r3d_l2_top2
     if fn.restype is not ctypes.c_int or fn.argtypes is None:
@@ -186,47 +227,80 @@ def _lib():
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
-def _single_pair(index: int) -> torch.Tensor:
-    """The pair table (0, 0) of a single-pair call, kept on the card."""
-    return torch.zeros((1, 2), dtype=torch.int32,
-                       device=torch.device("cuda", index))
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def column_splits(P: int, M: int, N: int, sms: int) -> int:
-    """Column ranges of one call: 1 when its ceil(M/128)·P blocks give at
-    least two per SM, else enough ranges of whole 128-column tiles to come
-    near that (no range empty)."""
-    blocks, ntiles = _cdiv(M, TILE_M) * P, _cdiv(N, TILE_N)
-    if blocks >= 2 * sms:
-        return 1
-    per = _cdiv(ntiles, min(ntiles, _cdiv(2 * sms, blocks)))
-    return _cdiv(ntiles, per)
+def cluster_plan(P: int, M: int, N: int, fits: Sequence[int],
+                 granule: int = 1) -> Tuple[int, int]:
+    """(ranks, column tiles per rank) of one call. Its ceil(M/128)·P row
+    tiles are one block each, or one cluster of ``ranks`` blocks each
+    when they fill less than one wave; ``fits[r - 1]`` is how many
+    clusters of r blocks the card holds at once (``fits[0]``: blocks, one
+    an SM). Every rank takes a contiguous range of whole 128-column tiles,
+    none empty (the C side cuts the same ranges from the ranks it is
+    given). Of up to ``MAX_RANKS`` ranks the plan takes the least waves x
+    ceil(tiles a rank / granule) (``granule`` 2 for the f32 body, which
+    walks two column tiles a step), then the fewest waves, then the fewest
+    ranks."""
+    rows, ntiles = _cdiv(M, TILE_M) * P, _cdiv(N, TILE_N)
+    if rows >= fits[0]:
+        return 1, ntiles
+    best = None
+    for r in range(1, min(MAX_RANKS, ntiles, len(fits)) + 1):
+        per = _cdiv(ntiles, r)
+        if _cdiv(ntiles, per) != r or fits[r - 1] <= 0:
+            continue                    # a rank would be empty, or no room
+        waves = _cdiv(rows, fits[r - 1])
+        key = (waves * _cdiv(per, granule), waves, r)
+        if best is None or key < best[0]:
+            best = (key, r, per)
+    return best[1], best[2]
 
 
-def _check_desc(name, t):
+@functools.lru_cache(maxsize=None)
+def _cluster_fits(index: int, bf16: bool, D: int) -> Tuple[int, ...]:
+    """How many clusters of 1..MAX_RANKS blocks of the FULL kernel (of
+    dtype bf16 or f32, width D) the card ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``): one 227 KB block an SM, so a
+    cluster of r needs r free SMs of one GPC."""
+    fn = _build.load_library(_SOURCE).r3d_l2_top2_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    out = []
+    with torch.cuda.device(index):
+        for r in range(1, MAX_RANKS + 1):
+            n = ctypes.c_int(0)
+            err = fn(int(bf16), D, r, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed "
+                                   f"(cudaError {err})")
+            out.append(n.value)
+    return tuple(out)
+
+
+def plan(dev, bf16: bool, P: int, M: int, N: int, D: int) -> Tuple[int, int]:
+    """``cluster_plan`` of a FULL call on card ``dev``."""
+    return cluster_plan(P, M, N, _cluster_fits(dev.index, bf16, D),
+                        1 if bf16 else 2)
+
+
+def _check_desc(name, t, dims: int = 3):
     """What the kernels' tensor maps take: a contiguous (B, N, D) float32
-    or bfloat16 tensor whose rows are whole k steps of 16 (so a multiple of
-    16 bytes, as TMA needs), D <= MAX_BF16_DIM in bfloat16, 16-byte
-    aligned, on a card."""
+    or bfloat16 tensor ((N, D) with ``dims=2``) whose rows are whole k
+    steps of 16 (so a multiple of 16 bytes, as TMA needs), D <=
+    MAX_BF16_DIM in bfloat16, 16-byte aligned, on a card."""
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    if t.dim() != 3 or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous (B, N, D) tensor")
-    if t.shape[2] % 16 or t.shape[2] == 0:
-        raise ValueError(f"{name}: D={t.shape[2]} must be a multiple of 16")
-    if t.dtype == torch.bfloat16 and t.shape[2] > MAX_BF16_DIM:
+    if t.dim() != dims or not t.is_contiguous():
+        shape = "(B, N, D)" if dims == 3 else "(N, D)"
+        raise ValueError(f"{name} must be a contiguous {shape} tensor")
+    D = t.shape[-1]
+    if D % 16 or D == 0:
+        raise ValueError(f"{name}: D={D} must be a multiple of 16")
+    if t.dtype == torch.bfloat16 and D > MAX_BF16_DIM:
         raise ValueError(f"{name}: the bf16 kernel takes D <= "
-                         f"{MAX_BF16_DIM}, got {t.shape[2]}")
+                         f"{MAX_BF16_DIM}, got {D}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
     if not t.is_cuda:
@@ -253,11 +327,19 @@ def _host_pairs(pairs, Ba: int, Bb: int):
     return pairs_h
 
 
+def _outputs(shape, dev):
+    """(d1, i1, d2) of a call: f32, int32, f32 tensors of ``shape``, views
+    of one allocation (one allocation costs a third of three on the host,
+    where a single-pair call spends most of its time)."""
+    d1, i1, d2 = torch.empty((3, *shape), dtype=torch.float32,
+                             device=dev).unbind(0)
+    return d1, i1.view(torch.int32), d2
+
+
 def _launch(desc_a, desc_b, bnorm, pairs_h, mode: str = "full"):
     """One kernel call: rows of desc_a[pairs_h[:, 0]] against
-    desc_b[pairs_h[:, 1]] (a table checked by ``_host_pairs``);
-    ``pairs_h=None`` is the single pair (0, 0). Returns (d1, i1, d2), each
-    (P, M); the ablation modes fill only d1."""
+    desc_b[pairs_h[:, 1]] (a table checked by ``_host_pairs``). Returns
+    (d1, i1, d2), each (P, M); the ablation modes fill only d1."""
     _check_desc("desc_a", desc_a)
     _check_desc("desc_b", desc_b)
     if desc_a.dtype != desc_b.dtype or desc_a.device != desc_b.device:
@@ -269,29 +351,21 @@ def _launch(desc_a, desc_b, bnorm, pairs_h, mode: str = "full"):
     dev = desc_a.device
     Ba, M, D = desc_a.shape
     Bb, N, _ = desc_b.shape
-    if pairs_h is None:
-        pairs_d = _single_pair(dev.index)
-    else:
-        pairs_d = _to_device(pairs_h, dev)
+    pairs_d = _to_device(pairs_h, dev)
     if bnorm.shape != (Bb, N) or bnorm.dtype != torch.float32 \
             or bnorm.device != dev or not bnorm.is_contiguous():
         raise ValueError("bnorm must be a contiguous (B, N) float32 tensor "
                          "on the descriptors' device")
     P = pairs_d.shape[0]
-    splits = 1
+    ranks = 1
     if mode == "full":
-        splits = column_splits(P, M, N, _sm_count(dev.index))
-    d1 = torch.empty((P, M), dtype=torch.float32, device=dev)
-    i1 = torch.empty((P, M), dtype=torch.int32, device=dev)
-    d2 = torch.empty((P, M), dtype=torch.float32, device=dev)
-    part = (torch.empty(((3 * splits + 1) * P * M,), dtype=torch.float32,
-                        device=dev) if splits > 1 else None)
+        ranks = plan(dev, desc_a.dtype == torch.bfloat16, P, M, N, D)[0]
+    d1, i1, d2 = _outputs((P, M), dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib()(0 if desc_a.dtype == torch.float32 else 1, _MODE[mode],
                  desc_a.data_ptr(), desc_b.data_ptr(), bnorm.data_ptr(),
-                 pairs_d.data_ptr(), P, M, N, D, splits,
-                 d1.data_ptr(), i1.data_ptr(), d2.data_ptr(),
-                 None if part is None else part.data_ptr(), stream)
+                 pairs_d.data_ptr(), P, M, N, D, ranks,
+                 d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), None, stream)
     if err != 0:
         raise RuntimeError(f"l2_top2 CUDA kernel launch failed (cudaError {err})")
     return d1, i1, d2
@@ -332,16 +406,84 @@ def l2_top2_block(desc, mask, pairs, bf16: bool = False):
     return out
 
 
+def _pair_entry(lib):
+    """``r3d_l2_top2_pair`` of a loaded library, its argument types set."""
+    fn = lib.r3d_l2_top2_pair
+    if fn.restype is not ctypes.c_int or fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
+        lib.r3d_l2_top2_pair_workspace.restype = ctypes.c_longlong
+        lib.r3d_l2_top2_pair_workspace.argtypes = [ctypes.c_int] * 4
+    return fn
+
+
+@functools.lru_cache(maxsize=1024)
+def _pair_setup(index: int, kernel_bf16: bool, rnd: bool, M: int, N: int,
+                D: int):
+    """(C entry, ranks, workspace bytes) of a single-pair call of this
+    shape on card ``index``, worked out once: the wrapper's host time is
+    most of a call's."""
+    lib = _build.load_library(_SOURCE)
+    fn = _pair_entry(lib)
+    ranks = plan(torch.device("cuda", index), kernel_bf16, 1, M, N, D)[0]
+    return fn, ranks, lib.r3d_l2_top2_pair_workspace(M, N, D, int(rnd))
+
+
+# K2's workspace (|b|^2, the bf16 operands) per (device, stream), grown on
+# demand: calls on one stream run in its order, so one buffer serves them
+# all and a call allocates only its outputs. Threads calling on one stream
+# take the lock around the workspace and the C call, so that each call's
+# prologue and kernel sit next to each other in the stream (another call's
+# prologue cannot overwrite the workspace under a kernel still to run)
+_WORKSPACE: Dict[Tuple[int, int], torch.Tensor] = {}
+_WORKSPACE_LOCK = threading.Lock()
+
+
+def _workspace(dev, stream: int, nbytes: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    w = _WORKSPACE.get(key)
+    if w is None or w.numel() < nbytes:
+        w = _WORKSPACE[key] = torch.empty((nbytes,), dtype=torch.uint8,
+                                          device=dev)
+    return w
+
+
 def l2_top2(desc_a, desc_b, mask_b, bf16: bool = False):
-    """Fused two-NN search for one pair (K2): desc_a (M, D), desc_b (N, D),
-    mask_b (N,). Returns (d1, i1, d2), each (M,)."""
+    """Fused two-NN search for one pair (K2): desc_a (M, D), desc_b (N, D)
+    of one dtype, mask_b (N,) bool. Returns (d1, i1, d2), each (M,). On a
+    card: one C call, the prologue (|b|^2 under the mask; with ``bf16`` on
+    f32 descriptors, the rounded operands) and one cluster launch."""
     if not desc_a.is_cuda:
         return l2_top2_plain(desc_a, desc_b, mask_b, bf16)
-    a, b = _kernel_operands(desc_a, bf16), _kernel_operands(desc_b, bf16)
-    d1, i1, d2 = _launch(a[None], b[None], _bnorm(desc_b, mask_b)[None],
-                         None)
-    LAUNCHES[f"l2_top2_{_DTYPE_TAG[a.dtype]}"] += 1
-    return d1[0], i1[0], d2[0]
+    a, b, mb = desc_a.contiguous(), desc_b.contiguous(), mask_b.contiguous()
+    _check_desc("desc_a", a, 2)
+    _check_desc("desc_b", b, 2)
+    if a.dtype != b.dtype or a.device != b.device:
+        raise ValueError("desc_a and desc_b must share dtype and device")
+    (M, D), N = a.shape, b.shape[0]
+    if b.shape[1] != D:
+        raise ValueError("descriptor widths differ")
+    if mb.shape != (N,) or mb.dtype != torch.bool or mb.device != a.device:
+        raise ValueError("mask_b must be an (N,) bool tensor on the "
+                         "descriptors' device")
+    dev = a.device
+    rnd = bf16 and a.dtype == torch.float32
+    kernel_bf16 = rnd or a.dtype == torch.bfloat16
+    fn, ranks, nbytes = _pair_setup(dev.index, kernel_bf16, rnd, M, N, D)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    d1, i1, d2 = _outputs((M,), dev)
+    with _WORKSPACE_LOCK:
+        work = _workspace(dev, stream, nbytes)
+        err = fn(int(a.dtype == torch.bfloat16), int(rnd), a.data_ptr(),
+                 b.data_ptr(), mb.data_ptr(), M, N, D, ranks,
+                 work.data_ptr(), d1.data_ptr(), i1.data_ptr(),
+                 d2.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"l2_top2 CUDA kernel launch failed (cudaError "
+                           f"{err})")
+    LAUNCHES["l2_top2_bf16" if kernel_bf16 else "l2_top2_f32"] += 1
+    return d1, i1, d2
 
 
 def l2_top2_block_ablated(desc, mask, pairs, mode: str):

@@ -1,8 +1,8 @@
 """ctypes binding to the repository's host library (``native/r3d_native.cpp``).
 
-Counterpart of ``regard3d_tpu/native.py`` for the functions the port calls:
-the MSER and TBMR component-tree detectors (host C++ in the reference too)
-and the ``.feat`` text parser. The source is compiled with g++ at first use,
+Counterpart of ``regard3d_tpu/native.py``: the MSER and TBMR component-tree
+detectors (host C++ in the reference too), the ``.feat`` text parser and
+the union-find of connected components. The source is compiled with g++ at first use,
 with the reference's flags (``-O3 -fPIC -shared -std=c++17``, no
 ``-march=native``, so float results are the same bits on any x86-64 host),
 into :func:`runtime.kernel_build_dir` by ``kernels/_build.compile_library``
@@ -11,8 +11,9 @@ then renamed). The JAX package's own build product under ``native/`` is
 never read or written.
 
 There is no NumPy stand-in: a failed build raises with g++'s output, and a
-failed call raises. ``r3d_union_find`` is not bound: the port's
-``sfm/tracks.py`` labels components without it.
+failed call raises (the reference returns ``None``). The port's
+``sfm/tracks.py`` keeps its own array labelling of components; it gives
+the same components as :func:`union_find`.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _f32p = ctypes.POINTER(ctypes.c_float)
 _u8p = ctypes.POINTER(ctypes.c_uint8)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 
 
 def build() -> str:
@@ -54,6 +56,9 @@ def get_lib() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
+            lib.r3d_union_find.restype = ctypes.c_int64
+            lib.r3d_union_find.argtypes = [_i64p, ctypes.c_int64,
+                                           ctypes.c_int64, _i64p]
             lib.r3d_parse_feats.restype = ctypes.c_int64
             lib.r3d_parse_feats.argtypes = [ctypes.c_char_p, _f32p,
                                             ctypes.c_int64]
@@ -74,6 +79,19 @@ def _checked(n: int, what: str) -> int:
     if n < 0:
         raise RuntimeError(f"native {what} failed (allocation or I/O)")
     return n
+
+
+def union_find(edges: np.ndarray, num_nodes: int) -> np.ndarray:
+    """Connected-component labels of ``num_nodes`` nodes joined by an
+    (E, 2) edge list: (num_nodes,) int64, components numbered 0..k-1 in
+    order of their first node. Edges with an end outside [0, num_nodes)
+    are ignored."""
+    edges = np.ascontiguousarray(edges, np.int64).reshape(-1, 2)
+    labels = np.empty(num_nodes, np.int64)
+    _checked(get_lib().r3d_union_find(
+        edges.ctypes.data_as(_i64p), len(edges), num_nodes,
+        labels.ctypes.data_as(_i64p)), "union_find")
+    return labels
 
 
 def mser(img_u8: np.ndarray, delta: int = 5, min_area: int = 60,

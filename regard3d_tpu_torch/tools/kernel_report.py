@@ -16,9 +16,20 @@ and at B = 200, N = 768 in f32, K1 bf16 and its two ablations at N = 4096,
 P = 64 pairs, D = 144, on unit-norm descriptors drawn from
 ``default_rng(0)``; each result is held against the plain version
 (``kernels/match``) on the same inputs. One JSON line per case, with
-``torch.bmm`` of the same operands beside it. Two sources timed in one run
-(``--source A --source B``, in turns A, B, B, A) compare two versions of
-the kernels on one card.
+``torch.bmm`` of the same operands beside it. Then the single-pair call
+(K2) on ``chip_smoke.py`` (c)'s ragged (4000, 144) x (3001, 144) shape in
+f32 and bf16 (every 50th B row masked), timed as all the device work of
+one call (:func:`pair_call`): ``ms`` of that work, ``call_ms`` of the C
+entry alone, ``host_us`` per call of that work issued back to back (and
+``call_host_us`` of the C entry alone; ``*_busy`` with the card kept busy
+by a spin kernel queued ahead, so no launch meets an idle card), and the
+device operations of one call by ``torch.profiler`` with their summed
+time (``device_us``: all the device work of one call); every row says
+whether its outputs are bit for bit the first source's; and, once per
+case, this tree's own wrapper ``kernels/match.l2_top2`` (``wrapper_ms``,
+``wrapper_host_us``) and ``torch.mm`` of the operands. Two sources timed
+in one run (``--source A --source B``, in turns A, B, B, A) compare two
+versions of the kernels on one card.
 
 Run: ``python -m regard3d_tpu_torch.tools.kernel_report [--source FILE]...
 [--time]`` on a machine with the CUDA toolkit (nvcc, cuobjdump); ``--time``
@@ -28,10 +39,12 @@ needs a card and raises without one.
 from __future__ import annotations
 
 import argparse
+import collections
 import ctypes
 import json
 import os
-from typing import Dict, List
+import time
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +84,11 @@ CASES = (("k1_f32_n4096", 11, 4096, 0, 0), ("k1_f32_n768", 200, 768, 0, 0),
          ("k1_bf16_n4096", 11, 4096, 1, 0), ("mm_only_n4096", 11, 4096, 1, 1),
          ("min_only_n4096", 11, 4096, 1, 2))
 PAIRS, DIM = 64, 144
+# (name, M, N, bf16) of the single-pair cases
+PAIR_CASES = (("k2_f32", 4000, 3001, False), ("k2_bf16", 4000, 3001, True))
+# the column ranges that the earlier wrapper, whose library has no cluster
+# entry, split that call into (two blocks an SM on 132 SMs)
+SPLIT_RANGES = 8
 
 
 def _entry(lib: str):
@@ -127,6 +145,193 @@ def c_call(fn, desc, mask, pairs, bf16: bool, mode: int = 0):
     return (lambda keep=(ops, bn, pd): fn(*args)), res
 
 
+def _pair_inputs(M: int, N: int):
+    """Unit-norm (M, DIM) and (N, DIM) descriptors from ``default_rng(0)``,
+    every 50th B row masked."""
+    rng = np.random.default_rng(0)
+    a, b = (rng.random((n, DIM), dtype=np.float32) for n in (M, N))
+    a /= np.linalg.norm(a, axis=-1, keepdims=True)
+    b /= np.linalg.norm(b, axis=-1, keepdims=True)
+    mask = np.ones(N, bool)
+    mask[::50] = False
+    return (torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
+            torch.from_numpy(mask).cuda())
+
+
+def pair_call(lib: str, a, b, mb, bf16: bool):
+    """All the device work of one single-pair call through library ``lib``
+    as ``(run, call, res)``: ``run()`` issues that work, ``call()`` the C
+    entry alone on inputs made beforehand, ``res`` the (d1, i1, d2) both
+    write. A library with ``r3d_l2_top2_pair`` does all of it in that
+    entry: a fused prologue (|b|^2 under the mask, the bf16 operands) and
+    one cluster launch. One without it takes the earlier wrapper's route:
+    a torch prologue (the bf16 casts, |b|^2 under the mask), then
+    ``r3d_l2_top2`` over ``SPLIT_RANGES`` column ranges, whose merge kernel
+    combines them from a scratch buffer."""
+    handle = ctypes.CDLL(lib)
+    (M, D), N = a.shape, b.shape[0]
+    dev = a.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = [torch.empty((M,), dtype=t, device=dev)
+           for t in (torch.float32, torch.int32, torch.float32)]
+    outs = tuple(t.data_ptr() for t in res)
+    if hasattr(handle, "r3d_l2_top2_pair"):
+        fn = match_mod._pair_entry(handle)
+        rnd = bf16 and a.dtype == torch.float32
+        ranks = match_mod.plan(dev, bf16 or a.dtype == torch.bfloat16, 1, M,
+                               N, D)[0]
+        work = torch.empty((handle.r3d_l2_top2_pair_workspace(M, N, D,
+                                                              int(rnd)),),
+                           dtype=torch.uint8, device=dev)
+        args = (int(a.dtype == torch.bfloat16), int(rnd), a.data_ptr(),
+                b.data_ptr(), mb.data_ptr(), M, N, D, ranks,
+                work.data_ptr(), *outs, stream)
+        # the closure keeps the workspace and the outputs alive
+        call = lambda keep=(work, res): fn(*args)
+        return call, call, res
+    fn = _entry(lib)
+    pairs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    part = torch.empty(((3 * SPLIT_RANGES + 1) * M,), device=dev)
+
+    def prologue():
+        ops = [t.to(torch.bfloat16) if bf16 else t for t in (a, b)]
+        bn = torch.where(mb, torch.sum(b.float() ** 2, -1), match_mod._BIG)
+        return ops, bn
+
+    def c_entry(ops, bn):
+        return fn(int(bf16), 0, ops[0].data_ptr(), ops[1].data_ptr(),
+                  bn.data_ptr(), pairs.data_ptr(), 1, M, N, D, SPLIT_RANGES,
+                  *outs, part.data_ptr(), stream)
+    made = prologue()
+    return ((lambda keep=res: c_entry(*prologue())),
+            (lambda keep=res: c_entry(*made)), res)
+
+
+def _host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of ``fn`` issued back to back (one
+    synchronize after the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+MARKER = "spin_kernel"      # torch.cuda._sleep's kernel
+
+
+def ops_per_call(events) -> List[Tuple[str, float]]:
+    """The device operations of one call as (name, microseconds), from
+    (start_ns, end_ns, name) events of calls each opened by a ``MARKER``
+    kernel: the events are cut at the markers, the names are the list most
+    calls gave (a trace can miss an operation at its start), each time the
+    median over the calls that gave that list."""
+    per_call, cur = [], None
+    for t0, t1, name in sorted(events):
+        if MARKER in name:
+            cur = []
+            per_call.append(cur)
+        elif cur is not None:
+            cur.append((name, (t1 - t0) * 1e-3))
+    if not per_call:
+        return []
+    names = collections.Counter(tuple(n for n, _ in c) for c in per_call)
+    top = names.most_common(1)[0][0]
+    same = [c for c in per_call if tuple(n for n, _ in c) == top]
+    return [(n, float(np.median([c[k][1] for c in same])))
+            for k, n in enumerate(top)]
+
+
+def device_ops(fn, calls: int = 5,
+               tries: int = 3) -> List[Tuple[str, float]]:
+    """:func:`ops_per_call` of ``calls`` calls of ``fn`` under
+    ``torch.profiler``, each opened by ``torch.cuda._sleep``'s spin kernel:
+    the device operations (kernels, copies, memsets) that one call issues,
+    with their times. A trace that came back with no device events at all
+    (seen once in a process's later profiler sessions) is taken again, up
+    to ``tries`` times; [] if none held a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda.synchronize()
+        ops = ops_per_call((e.start_ns(), e.end_ns(), e.name())
+                           for e in prof.profiler.kineto_results.events()
+                           if e.device_type() == DeviceType.CUDA)
+        if ops:
+            return ops
+    return []
+
+
+def _host_us_busy(fn, reps: int = 50) -> float:
+    """:func:`_host_us` with the card kept busy: a spin kernel long enough
+    to outlast the timed calls is queued ahead of them, so no launch meets
+    an idle card."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e8))             # ~0.1 s at the H100's clocks
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def time_pair_cases(libs: List[str]) -> List[dict]:
+    """The single-pair cases on each library in turns, as in
+    :func:`time_cases`; per case also this tree's wrapper and
+    ``torch.mm``."""
+    order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    out = []
+    for name, M, N, bf16 in PAIR_CASES:
+        a, b, mb = _pair_inputs(M, N)
+        want = match_mod.l2_top2_plain(a, b, mb, bf16)
+        ops = [t.to(torch.bfloat16) if bf16 else t for t in (a, b)]
+        wrap = lambda: match_mod.l2_top2(a, b, mb, bf16=bf16)
+        head = {"case": name, "wrapper_ms": _cuda_ms(wrap),
+                "wrapper_host_us": _host_us(wrap),
+                "wrapper_host_us_busy": _host_us_busy(wrap),
+                "mm_ms": _cuda_ms(lambda: torch.mm(ops[0], ops[1].t()))}
+        print(json.dumps(head), flush=True)
+        calls = [pair_call(lib, a, b, mb, bf16) for lib in libs]
+        for turn, k in enumerate(order):
+            run, call, res = calls[k]
+            if run() != 0:
+                raise RuntimeError(f"{libs[k]}: launch failed")
+            torch.cuda.synchronize()
+            ops = device_ops(run)
+            row = {"case": name, "source": libs[k], "turn": turn,
+                   "ms": _cuda_ms(run), "call_ms": _cuda_ms(call),
+                   "host_us": _host_us(run), "call_host_us": _host_us(call),
+                   "call_host_us_busy": _host_us_busy(call),
+                   "device_ops": len(ops),
+                   "device_us": sum(us for _, us in ops),
+                   "ops": [[n[:60], us] for n, us in ops],
+                   "max_abs_err_d1": float((res[0] - want[0]).abs().max()),
+                   "i1_agree": float((res[1] == want[1]).float().mean()),
+                   "identical_to_first": _identical(res, calls[0][2], 3)}
+            print(json.dumps(row), flush=True)
+            out.append(row)
+    return out
+
+
+def _identical(res, first, n: int) -> bool:
+    """Whether the first ``n`` outputs of a library are bit for bit the
+    first library's (the ablation modes write only d1; compared once both
+    have run: the first source runs first)."""
+    return all(torch.equal(x, y) for x, y in zip(res[:n], first[:n]))
+
+
 def time_cases(libs: List[str]) -> List[dict]:
     """Each case on each library (in turns: first, second, ..., then back),
     the C call alone, against the plain version and ``torch.bmm``."""
@@ -159,7 +364,9 @@ def time_cases(libs: List[str]) -> List[dict]:
             row = {"case": name, "source": libs[k], "turn": turn,
                    "ms": _cuda_ms(run),
                    "bmm_ms": bmm_ms, "max_abs_err_d1": err,
-                   "i1_agree": same}
+                   "i1_agree": same,
+                   "identical_to_first": _identical(res, calls[0][1],
+                                                    1 if mode else 3)}
             print(json.dumps(row), flush=True)
             out.append(row)
     return out
@@ -178,7 +385,9 @@ def main(argv=None):
         for name, row in report(src).items():
             print(json.dumps({"source": src, "kernel": name, **row}))
         libs.append(_build.library_path(src, _build.NVCC_FLAGS))
-    return time_cases(libs) if args.time else None
+    if not args.time:
+        return None
+    return time_cases(libs) + time_pair_cases(libs)
 
 
 if __name__ == "__main__":

@@ -142,3 +142,22 @@ def test_timing_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):
         kernel_report.time_cases(["lib.so"])
+
+
+def test_ops_per_call_cuts_a_trace_at_its_markers():
+    """The device operations of one call from a trace of several calls,
+    each opened by the marker kernel: the list most calls gave (the first
+    call's trace missed its prologue), each time the median over those
+    calls; events before the first marker are not a call's."""
+    m = kernel_report.MARKER
+    events = [(0, 5_000, "early"),
+              (10_000, 11_000, m), (12_000, 14_000, "main"),
+              (20_000, 21_000, m), (22_000, 23_000, "prep"),
+              (23_000, 26_000, "main"),
+              (30_000, 31_000, m), (32_000, 33_000, "prep"),
+              (33_000, 35_000, "main"),
+              (40_000, 41_000, m), (42_000, 44_000, "prep"),
+              (44_000, 48_000, "main")]
+    got = kernel_report.ops_per_call(reversed(events))
+    assert got == [("prep", 1.0), ("main", 3.0)]
+    assert kernel_report.ops_per_call([(0, 1, "main")]) == []

@@ -306,20 +306,73 @@ def test_ablated_block_vs_pallas_interpret(mode, d):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("P,M,N,want", [
-    (64, 4096, 4096, 1),     # K1 on the main path: 2048 blocks
-    (1, 4000, 3001, 8),      # K2: 32 row tiles, 24 column tiles
-    (1, 100, 100, 1),        # one column tile: nothing to split
-    (4, 1000, 4096, 8),      # 32 blocks -> 256 (4 tiles a range)
-])
-def test_column_splits(P, M, N, want):
-    """Small grids are split over whole 128-column tiles until they reach
-    about two blocks per SM of a 132-SM card; no range is empty."""
-    s = tm.column_splits(P, M, N, 132)
-    assert s == want
+# clusters of 1..8 blocks a card holds at once: every SM of a 132-SM card
+# usable (IDEAL), and what ``cudaOccupancyMaxActiveClusters`` reads for
+# both FULL kernels (one block an SM) on an H100 80GB HBM3, whose GPCs
+# leave SMs idle at most cluster sizes (H100)
+IDEAL = tuple(132 // r for r in range(1, 9))
+H100 = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
+@pytest.mark.parametrize("P,M,N,granule,fits,want", [
+    (64, 4096, 4096, 2, H100, (1, 32)),  # K1 on the main path: 2048 blocks
+    (64, 768, 768, 2, H100, (1, 6)),     # K1 at the scale tool's N
+    (1, 4000, 3001, 1, IDEAL, (4, 6)),   # K2: 32 row tiles of 24 tiles
+    (1, 4000, 3001, 1, H100, (3, 8)),    # 30 clusters of 4 fit, 39 of 3
+    (1, 4000, 3001, 2, H100, (3, 8)),    # f32: two column tiles a step
+    (1, 100, 100, 1, H100, (1, 1)),      # one column tile: nothing to split
+    (4, 1000, 4096, 1, IDEAL, (4, 8)),   # 32 blocks -> 128
+    (1, 4000, 600, 1, IDEAL, (3, 2)),    # 5 tiles: 4 ranks leave one empty
+], ids=["k1_main", "k1_scale", "k2_ideal", "k2_h100_bf16", "k2_h100_f32",
+        "one_tile", "few_pairs", "no_empty_rank"])
+def test_cluster_plan(P, M, N, granule, fits, want):
+    """A call whose row tiles fill less than one wave becomes clusters of up
+    to 8 ranks: the fewest waves x column tiles a rank (counted in steps of
+    ``granule`` tiles) that the card's cluster capacity allows; each rank a
+    contiguous range of whole 128-column tiles, none empty."""
+    ranks, per = tm.cluster_plan(P, M, N, fits, granule)
+    assert (ranks, per) == want
     ntiles = -(-N // 128)
-    per = -(-ntiles // s)
-    assert (s - 1) * per < ntiles <= s * per
+    assert 1 <= ranks <= tm.MAX_RANKS
+    assert (ranks - 1) * per < ntiles <= ranks * per
+    assert ranks == 1 or -(-M // 128) * P <= fits[ranks - 1]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_rank_merge_keeps_lowest_column_on_ties(rng, bf16):
+    """The plain version of the cluster path's merge (``merge_top2`` over
+    the ranks' column ranges in rank order) on K2's shape: exact ties
+    planted inside one range (columns 9 and 11) and across two ranges
+    (columns 5 and 2000, in ranks 0 and 2 of 4) keep the lowest column with
+    d2 == d1, and every row equals the unsplit plain version and the
+    reference's nearest index."""
+    a = unit_rows(rng.normal(size=(256, 144)))
+    b = unit_rows(rng.normal(size=(3001, 144)))
+    b[5] = a[0] + 0.01
+    b[2000] = b[5]
+    b[9] = a[1] + 0.01
+    b[11] = b[9]
+    mask = np.ones(3001, bool)
+    mask[::50] = False
+    mask[[5, 9, 11, 2000]] = True
+    ranks, per = tm.cluster_plan(1, 4000, 3001, IDEAL)
+    assert ranks == 4 and 5 // (per * 128) != 2000 // (per * 128)
+    t = torch.tensor
+    got = tm.l2_top2_ranks_plain(t(a), t(b), t(mask), ranks, bf16)
+    want = tm.l2_top2_plain(t(a), t(b), t(mask), bf16)
+    _same_top2(got, want, rtol=1e-6)
+    d1, i1, d2 = (x.numpy() for x in got)
+    assert i1[0] == 5 and i1[1] == 9
+    assert d1[0] == d2[0] and d1[1] == d2[1]
+    ij, _, _ = jm.match_pair_ref(jnp.asarray(a), jnp.ones(256, bool),
+                                 jnp.asarray(b), jnp.asarray(mask), 0.8)
+    np.testing.assert_array_equal(i1, np.asarray(ij))
+    # the merge rule itself: a tie across ranks keeps the lower column
+    m = tm.merge_top2((t([1.0, 1.0, 2.0]), t([3, 7, 1]), t([4.0, 4.0, 5.0])),
+                      (t([1.0, 1.0, 1.5]), t([9, 2, 8]), t([1.0, 3.0, 6.0])))
+    np.testing.assert_array_equal(m[0].numpy(), [1.0, 1.0, 1.5])
+    np.testing.assert_array_equal(m[1].numpy(), [3, 2, 8])
+    np.testing.assert_array_equal(m[2].numpy(), [1.0, 1.0, 2.0])
 
 
 def test_mutual_filter(rng):

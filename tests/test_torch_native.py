@@ -5,7 +5,9 @@ Both compile ``native/r3d_native.cpp``; the port builds it into its build
 directory (``runtime.kernel_build_dir()``) with the reference's flags.
 MSER, TBMR (both polarities) and the ``.feat`` parser must give rows
 identical to the reference's on the same uint8 images and files, an empty
-file included. The one allowed slack, 1e-5 on the float columns, applies
+file included; ``union_find`` the reference's labels on the edge lists of
+``tests/test_native.py``, and the components of the port's
+``sfm/tracks.py`` on a track graph. The one allowed slack, 1e-5 on the float columns, applies
 only where the reference loaded a library built otherwise (``native/
 build.sh`` adds ``-march=native``, which lets g++ contract to FMA); each
 test reports which case it met.
@@ -20,6 +22,7 @@ from regard3d_tpu import native as jnative
 from regard3d_tpu_torch import native as tnative
 from regard3d_tpu_torch import runtime
 from regard3d_tpu_torch.ingest import synth
+from regard3d_tpu_torch.sfm import tracks
 
 
 def _same_build() -> bool:
@@ -118,3 +121,50 @@ def test_build_failure_raises_with_the_compiler_message(tmp_path,
     monkeypatch.setattr(tnative.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         tnative.build()
+
+
+def _union_find_edges(case):
+    """The edge lists of ``tests/test_native.py``'s union-find cases:
+    (edges, num_nodes)."""
+    if case == "random":
+        n = 5000
+        edges = np.random.default_rng(0).integers(0, n, size=(20000, 2))
+        return edges.astype(np.int64), n
+    if case == "chain":
+        return np.stack([np.arange(99), np.arange(1, 100)],
+                        -1).astype(np.int64), 100
+    # out-of-range ends are ignored
+    return np.asarray([[0, 1], [5, 900], [-3, 2]], np.int64), 6
+
+
+@pytest.mark.parametrize("case", ["random", "chain", "out_of_range"])
+def test_union_find_labels_equal_reference(case):
+    edges, n = _union_find_edges(case)
+    got = tnative.union_find(edges, n)
+    want = jnative.union_find(edges, n)
+    assert want is not None
+    assert got.dtype == np.int64 and got.shape == (n,)
+    np.testing.assert_array_equal(got, want)
+    if case == "chain":
+        assert (got == 0).all()
+    if case == "out_of_range":
+        assert got[0] == got[1] and got[5] != got[0]
+        assert len(set(got.tolist())) == 5
+
+
+def test_union_find_components_equal_port_tracks():
+    """On a sparse match graph (300 edges over 400 nodes: many components,
+    some nodes isolated), ``union_find``'s labels and the component
+    labelling of the port's ``sfm/tracks.build_tracks`` (min-label
+    propagation, densely renumbered) give the same numbering."""
+    rng = np.random.default_rng(1)
+    n = 400
+    e0 = rng.integers(0, n, 300)
+    e1 = (e0 + rng.integers(1, 4, 300)) % n
+    edges = np.stack([e0, e1], -1).astype(np.int64)
+    labels = tnative.union_find(edges, n)
+    comp = tracks._connected_components(n, e0.astype(np.int64),
+                                        e1.astype(np.int64))
+    _, dense = np.unique(comp, return_inverse=True)
+    np.testing.assert_array_equal(labels, dense)
+    assert 1 < labels.max() + 1 < n
