@@ -44,7 +44,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import cameras as cam
 from regard3d_tpu_torch.core.segments import (SegmentTable, make_table,
                                               segment_sum)
@@ -439,18 +439,25 @@ def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
             point_reduce: Reduce = identity_reduce):
     """The LM outer loop on the host, one cost read per trial. With shards,
     every shard runs it on its own rows; the reduced costs agree, so every
-    shard takes the same steps. Returns (state, BAStats)."""
-    cost_of = lambda st: float(_full_cost(st, obs, opts, center_prior,
-                                          cam_reduce))
+    shard takes the same steps. Returns (state, BAStats).
+
+    Spans, under the caller's: ``.trial`` (linearise, solve and apply as
+    enqueued) and ``.cost`` (the cost read, which waits on the device)."""
+    def cost_of(st):
+        with spans.span(".cost"):
+            return float(_full_cost(st, obs, opts, center_prior,
+                                    cam_reduce))
+
     with torch.no_grad():
         cost = cost_of(state)
         initial = cost
         lam = opts.init_lambda
         it = 0
         for it in range(1, opts.max_iterations + 1):
-            new_state = lm_trial(state, lam, obs, opts, fixed_pose_mask,
-                                 intr_mask, center_prior, layout,
-                                 cam_reduce, point_reduce)
+            with spans.span(".trial"):
+                new_state = lm_trial(state, lam, obs, opts, fixed_pose_mask,
+                                     intr_mask, center_prior, layout,
+                                     cam_reduce, point_reduce)
             new_cost = cost_of(new_state)
             if new_cost == new_cost and abs(new_cost) != float("inf") \
                     and new_cost < cost:

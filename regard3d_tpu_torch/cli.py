@@ -8,7 +8,9 @@ surface) raise with no card unless ``--device cpu`` is given, and
 ``project.json`` never records the device. ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace (``DIR/trace.json``): on a card, its
 kernels, copies and launch calls, as a JAX trace holds the device's work
-and the runtime's dispatch (on the CPU, the operators). ``launch -n N --
+and the runtime's dispatch (on the CPU, the operators), and on a track of
+its own every span of the port's recorder (``spans.py``), so each gap
+between kernels lies under the host work that made it. ``launch -n N --
 <subcommand>`` runs a subcommand in N coordinated processes
 (``dist/launch.py``): ``matches`` shards its work over them, ``sfm
 --dist-ba`` shards its final bundle adjustment, and secondaries skip every
@@ -743,10 +745,16 @@ def main(argv=None):
         acts = ([ProfilerActivity.CUDA]
                 if torch.device(args.device).type == "cuda"
                 else [ProfilerActivity.CPU])
-        with profile(activities=acts) as prof:
+        from regard3d_tpu_torch import spans
+        with spans.timeline() as line, profile(activities=acts) as prof, \
+                spans.span(f"r3d.{args.cmd}"):
             args.fn(args)
         os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+        path = os.path.join(profile_dir, "trace.json")
+        prof.export_chrome_trace(path)
+        if spans.add_to_trace(path, line) != path:
+            print(f"host spans written beside the trace: {profile_dir}"
+                  "/host_spans.json", file=sys.stderr)
         print(f"profiler trace written to {profile_dir}", file=sys.stderr)
     else:
         args.fn(args)

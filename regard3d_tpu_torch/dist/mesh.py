@@ -27,6 +27,8 @@ from typing import Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from regard3d_tpu_torch import spans
+
 
 class Mesh:
     """Devices with named axes: ``devices`` is an object array of
@@ -135,7 +137,9 @@ def run_on_mesh(fn: Callable, items: Sequence, mesh: Mesh) -> list:
     """``fn(item, device)`` for every item, item k on mesh position
     k mod N; one thread per position, each taking its items in order, all
     started together. Returns the results in item order; re-raises the
-    first failure. With one position, runs in the calling thread."""
+    first failure. With one position, runs in the calling thread. The
+    workers' spans count in the caller's (``spans.bind``)."""
+    fn = spans.bind(fn)
     devices = mesh.device_list
     n = len(devices)
     if n == 1:

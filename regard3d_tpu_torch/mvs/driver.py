@@ -27,9 +27,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core.sfm_data import _np
 from regard3d_tpu_torch.core.types import Scene
 from regard3d_tpu_torch.dist import mesh as meshlib
@@ -214,7 +213,7 @@ def compute_depth_maps(scene: Scene, images: Sequence[np.ndarray],
             K_ref, Rs[pid[v]], Cs[pid[v]],
             np.stack([_K_for(scene, s, params.level) for s in src_ids]),
             Rs[pid[src_ids]], Cs[pid[src_ids]], depths)
-        with record_function("densify.sweep"), torch.no_grad():
+        with spans.span("densify.sweep"), torch.no_grad():
             idepth, ncc = planesweep.sweep(
                 torch.as_tensor(gray[v], **f32),
                 torch.as_tensor(np.stack([gray[s] for s in src_ids]), **f32),
@@ -281,7 +280,7 @@ def compute_depth_maps_sharded(scene: Scene, images: Sequence[np.ndarray],
     def sweep(prob, dev):
         v, src_ids, live, homos, idep = prob
         f32 = dict(dtype=torch.float32, device=dev)
-        with record_function("densify.sweep"), torch.no_grad():
+        with spans.span("densify.sweep"), torch.no_grad():
             idepth, ncc = planesweep.sweep(
                 torch.as_tensor(gray[v], **f32),
                 torch.as_tensor(np.stack([gray[s] for s in src_ids]), **f32),
@@ -327,7 +326,7 @@ def fuse_depth_maps(scene: Scene, images: Sequence[np.ndarray],
             continue
         src_ids = (srcs + [srcs[0]] * S)[:S]
         live = np.array([i < len(srcs) for i in range(S)])
-        with record_function("densify.fusion"), torch.no_grad():
+        with spans.span("densify.fusion"), torch.no_grad():
             idepth, valid = t32(dm.idepth), torch.as_tensor(dm.valid,
                                                             device=dev)
             K, R, C = t32(dm.K), t32(Rs[pid[v]]), t32(Cs[pid[v]])

@@ -45,9 +45,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import sfm_data as sd
 from regard3d_tpu_torch.core.types import RADIAL_K3, round_up
 from regard3d_tpu_torch.dist import launch
@@ -336,77 +335,94 @@ def filter_blocks(putative: Dict[Tuple[int, int], np.ndarray],
 def _filter_block(cap, group, xy, image_sizes, focals, cfg: MatchConfig,
                   seed, sample_provider, dev):
     """AC-RANSAC F, E and H of one block of pairs on ``dev``; returns the
-    block's (f, e, h) inlier match dicts."""
+    block's (f, e, h) inlier match dicts. Spans (under the caller's):
+    ``.block`` and its steps ``.prep`` (the padded arrays), ``.draws`` (a
+    kind's samples, taken before its sweep), ``.f`` / ``.e`` / ``.h`` (each
+    sweep as enqueued), ``.readback`` (the host waiting on the device) and
+    ``.collect``."""
     block = len(group)
-    max_err_f = np.float32(cfg.max_err_px ** 2)
-    x1 = np.zeros((block, cap, 2), np.float32)
-    x2 = np.zeros((block, cap, 2), np.float32)
-    x1n = np.zeros((block, cap, 2), np.float32)
-    x2n = np.zeros((block, cap, 2), np.float32)
-    maskb = np.zeros((block, cap), bool)
-    la_f = np.zeros((block,), np.float32)
-    la_h = np.zeros((block,), np.float32)
-    la_e = np.zeros((block,), np.float32)
-    me_f = np.full((block,), max_err_f, np.float32)
-    me_e = np.full((block,), max_err_f, np.float32)
-    has_e = np.zeros((block,), bool)
-    for bi, ((i, j), m) in enumerate(group):
-        n = len(m)
-        p1 = xy[i][m[:, 0]]
-        p2 = xy[j][m[:, 1]]
-        x1[bi, :n] = p1
-        x2[bi, :n] = p2
-        maskb[bi, :n] = True
-        w = float(max(image_sizes[i][0], image_sizes[j][0]))
-        h = float(max(image_sizes[i][1], image_sizes[j][1]))
-        la_f[bi] = ransac._logalpha0_line(w, h)
-        la_h[bi] = ransac._logalpha0_point(w, h)
-        if focals is not None and focals[i] > 0 and focals[j] > 0:
-            has_e[bi] = True
-            x1n[bi, :n] = (p1 - image_sizes[i] / 2.0) / focals[i]
-            x2n[bi, :n] = (p2 - image_sizes[j] / 2.0) / focals[j]
-            fmean = float(np.sqrt(focals[i] * focals[j]))
-            diag = np.sqrt(w * w + h * h)
-            la_e[bi] = np.log10(2.0 * diag / (w * h) * fmean)
-            me_e[bi] = (cfg.max_err_px / fmean) ** 2
-    mask_e = maskb & has_e[:, None]
-    iters = cfg.ransac_iters
-    t = lambda a: torch.as_tensor(a, device=dev)
-    draws = lambda kind, mk: _block_draws(kind, group, mk, iters, seed,
-                                          sample_provider, dev)
+    with spans.span(".block"):
+        with spans.span(".prep"):
+            max_err_f = np.float32(cfg.max_err_px ** 2)
+            x1 = np.zeros((block, cap, 2), np.float32)
+            x2 = np.zeros((block, cap, 2), np.float32)
+            x1n = np.zeros((block, cap, 2), np.float32)
+            x2n = np.zeros((block, cap, 2), np.float32)
+            maskb = np.zeros((block, cap), bool)
+            la_f = np.zeros((block,), np.float32)
+            la_h = np.zeros((block,), np.float32)
+            la_e = np.zeros((block,), np.float32)
+            me_f = np.full((block,), max_err_f, np.float32)
+            me_e = np.full((block,), max_err_f, np.float32)
+            has_e = np.zeros((block,), bool)
+            for bi, ((i, j), m) in enumerate(group):
+                n = len(m)
+                p1 = xy[i][m[:, 0]]
+                p2 = xy[j][m[:, 1]]
+                x1[bi, :n] = p1
+                x2[bi, :n] = p2
+                maskb[bi, :n] = True
+                w = float(max(image_sizes[i][0], image_sizes[j][0]))
+                h = float(max(image_sizes[i][1], image_sizes[j][1]))
+                la_f[bi] = ransac._logalpha0_line(w, h)
+                la_h[bi] = ransac._logalpha0_point(w, h)
+                if focals is not None and focals[i] > 0 and focals[j] > 0:
+                    has_e[bi] = True
+                    x1n[bi, :n] = (p1 - image_sizes[i] / 2.0) / focals[i]
+                    x2n[bi, :n] = (p2 - image_sizes[j] / 2.0) / focals[j]
+                    fmean = float(np.sqrt(focals[i] * focals[j]))
+                    diag = np.sqrt(w * w + h * h)
+                    la_e[bi] = np.log10(2.0 * diag / (w * h) * fmean)
+                    me_e[bi] = (cfg.max_err_px / fmean) ** 2
+            mask_e = maskb & has_e[:, None]
+        iters = cfg.ransac_iters
+        t = lambda a: torch.as_tensor(a, device=dev)
 
-    with torch.no_grad():
-        rf = ransac.acransac_f_batch(
-            None, t(x1), t(x2), t(maskb), t(la_f), t(me_f),
-            iters=iters, idx=draws("f", maskb))
-        re = None
-        if has_e.any():
-            re = ransac.acransac_e_batch(
-                None, t(x1n), t(x2n), t(mask_e), t(la_e), t(me_e),
-                iters=iters, idx=draws("e", mask_e))
-        rh = None
-        if cfg.compute_homography:
-            rh = ransac.acransac_h_batch(
-                None, t(x1), t(x2), t(maskb), t(la_h), t(me_f),
-                iters=iters, idx=draws("h", maskb))
+        def draws(kind, mk):
+            with spans.span(".draws"):
+                return _block_draws(kind, group, mk, iters, seed,
+                                    sample_provider, dev)
 
-    f_valid = rf.valid.cpu().numpy()
-    f_inl = rf.inliers.cpu().numpy()
-    e_valid = re.valid.cpu().numpy() if re is not None else None
-    e_inl = re.inliers.cpu().numpy() if re is not None else None
-    h_valid = rh.valid.cpu().numpy() if rh is not None else None
-    h_inl = rh.inliers.cpu().numpy() if rh is not None else None
-    out_f, out_e, out_h = {}, {}, {}
-    for bi, ((i, j), m) in enumerate(group):
-        n = len(m)
-        if f_valid[bi]:
-            out_f[(i, j)] = m[f_inl[bi][:n]]
-        if e_valid is not None and has_e[bi] and e_valid[bi]:
-            inl = e_inl[bi][:n]
-            if e_overlap_keep(int(inl.sum()), n, cfg):
-                out_e[(i, j)] = m[inl]
-        if h_valid is not None and h_valid[bi]:
-            out_h[(i, j)] = m[h_inl[bi][:n]]
+        # each kind's inputs, then its draws, then its sweep
+        with torch.no_grad():
+            a = (t(x1), t(x2), t(maskb), t(la_f), t(me_f))
+            idx = draws("f", maskb)
+            with spans.span(".f"):
+                rf = ransac.acransac_f_batch(None, *a, iters=iters, idx=idx)
+            re = None
+            if has_e.any():
+                a = (t(x1n), t(x2n), t(mask_e), t(la_e), t(me_e))
+                idx = draws("e", mask_e)
+                with spans.span(".e"):
+                    re = ransac.acransac_e_batch(None, *a, iters=iters,
+                                                 idx=idx)
+            rh = None
+            if cfg.compute_homography:
+                a = (t(x1), t(x2), t(maskb), t(la_h), t(me_f))
+                idx = draws("h", maskb)
+                with spans.span(".h"):
+                    rh = ransac.acransac_h_batch(None, *a, iters=iters,
+                                                 idx=idx)
+
+        with spans.span(".readback"):
+            f_valid = rf.valid.cpu().numpy()
+            f_inl = rf.inliers.cpu().numpy()
+            e_valid = re.valid.cpu().numpy() if re is not None else None
+            e_inl = re.inliers.cpu().numpy() if re is not None else None
+            h_valid = rh.valid.cpu().numpy() if rh is not None else None
+            h_inl = rh.inliers.cpu().numpy() if rh is not None else None
+        with spans.span(".collect"):
+            out_f, out_e, out_h = {}, {}, {}
+            for bi, ((i, j), m) in enumerate(group):
+                n = len(m)
+                if f_valid[bi]:
+                    out_f[(i, j)] = m[f_inl[bi][:n]]
+                if e_valid is not None and has_e[bi] and e_valid[bi]:
+                    inl = e_inl[bi][:n]
+                    if e_overlap_keep(int(inl.sum()), n, cfg):
+                        out_e[(i, j)] = m[inl]
+                if h_valid is not None and h_valid[bi]:
+                    out_h[(i, j)] = m[h_inl[bi][:n]]
     return out_f, out_e, out_h
 
 
@@ -444,6 +460,7 @@ def geometric_filter(kps, putative: Dict[Tuple[int, int], np.ndarray],
                else (run(blk, dev) for blk in blocks))
     out_f, out_e, out_h = {}, {}, {}
     n_done, n_total = 0, sum(len(g) for _, g in blocks)
+    spans.count("pairs", n_total)
     for (_, group), (f, e, h) in zip(blocks, results):
         out_f.update(f)
         out_e.update(e)
@@ -540,43 +557,65 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
                         ) -> Dict:
     """Full compute-matches step on a list of gray images. Returns stats,
     with the stage's time split under ``time_features_s``,
-    ``time_matching_s`` and ``time_filter_s`` (profiler spans
-    ``compute_matches.{features,matching,filter}``). Runs on ``device``
-    (default cuda; raises if no card and the CPU was not asked for), or
-    over the devices of ``mesh`` (default: every card when more than one
-    is visible). ``retrieval_k`` with a ``pairs`` list adds each image's
-    top-k most similar images as pairs (stats key ``pairs_retrieval``).
+    ``time_matching_s`` and ``time_filter_s`` (the seconds of the spans
+    ``compute_matches.{features,matching,filter}``) and every span's
+    summary under ``spans`` (``regard3d_tpu_torch/spans.py``). Runs on
+    ``device`` (default cuda; raises if no card and the CPU was not asked
+    for), or over the devices of ``mesh`` (default: every card when more
+    than one is visible). ``retrieval_k`` with a ``pairs`` list adds each
+    image's top-k most similar images as pairs (stats key
+    ``pairs_retrieval``).
 
     ``proc_count > 1``: this is process ``proc_id`` of a sharded run over
     the same ``out_dir`` (module docstring); every process must call it.
     The primary (0) writes the stage's artifacts and returns the stats;
-    a secondary returns ``{"role", "pairs_matched"}``."""
+    a secondary returns ``{"role", "pairs_matched", "spans"}``."""
     dev = runtime.resolve_device(device)
     mesh = meshlib.local_mesh("pairs", mesh, dev)
-    t0 = time.time()
+    with spans.collect() as col:
+        # every span of the step carries its prefix: the profiler mirrors a
+        # span onto the device's timeline, where a reader that keeps the
+        # step's spans by prefix must not take it for device work
+        with spans.span("compute_matches.step") as step:
+            stats = _compute_matches(
+                step, images, out_dir, threshold=threshold, cfg=cfg,
+                focals=focals, max_keypoints=max_keypoints, force=force,
+                image_names=image_names, detector=detector,
+                progress=progress, pairs=pairs, retrieval_k=retrieval_k,
+                dev=dev, seed=seed, sample_provider=sample_provider,
+                mesh=mesh, proc_id=proc_id, proc_count=proc_count)
+        stats["spans"] = col.summary()
+    return stats
+
+
+def _compute_matches(step, images, out_dir, threshold, cfg, focals,
+                     max_keypoints, force, image_names, detector, progress,
+                     pairs, retrieval_k, dev, seed, sample_provider, mesh,
+                     proc_id, proc_count) -> Dict:
+    """``run_compute_matches`` inside its step span ``step``."""
     os.makedirs(out_dir, exist_ok=True)
     sizes = np.asarray([[im.shape[1], im.shape[0]] for im in images])
     sharded = proc_count > 1
-    if proc_id == 0:
-        if sharded:
-            # markers of an earlier run of this step directory go first
-            for fn in os.listdir(out_dir):
-                if fn.startswith((".feat", ".put", ".part")) \
-                        and fn.endswith(".done"):
-                    os.remove(os.path.join(out_dir, fn))
-        write_stage_sfm_data(out_dir, sizes, focals, image_names)
-        if sharded:
-            _write_marker(os.path.join(out_dir, ".stage_ready"))
-    else:
-        _wait_for_marker(os.path.join(out_dir, ".stage_ready"))
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
-    # one profiler span per phase, each ending in a device synchronize, so
-    # a trace attributes every device operation to its phase
-    with record_function("compute_matches.features"):
+    # one span per phase, each ending in a device synchronize, so a trace
+    # attributes every device operation to its phase
+    with spans.span("compute_matches.features") as t_features:
+        if proc_id == 0:
+            if sharded:
+                # markers of an earlier run of this step directory go first
+                for fn in os.listdir(out_dir):
+                    if fn.startswith((".feat", ".put", ".part")) \
+                            and fn.endswith(".done"):
+                        os.remove(os.path.join(out_dir, fn))
+            write_stage_sfm_data(out_dir, sizes, focals, image_names)
+            if sharded:
+                _write_marker(os.path.join(out_dir, ".stage_ready"))
+        else:
+            _wait_for_marker(os.path.join(out_dir, ".stage_ready"))
         subset = None
         if sharded:      # whole buckets, round-robin over the processes
             subset = sorted(i for b in feat_mod.image_buckets(images)[
@@ -590,12 +629,12 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
         if sharded:
             _barrier(out_dir, "feat", proc_id, proc_count)
             counts = feat_mod.load_counts(out_dir, len(images))
-    t1 = time.time()
-    with record_function("compute_matches.matching"):
-        kps, descs = feat_mod.load_all_padded(out_dir, len(images),
-                                              pad_to=256,
-                                              padded_dim=MATCH_DIM,
-                                              device=dev)
+    with spans.span("compute_matches.matching") as t_matching:
+        with spans.span(".load"):
+            kps, descs = feat_mod.load_all_padded(out_dir, len(images),
+                                                  pad_to=256,
+                                                  padded_dim=MATCH_DIM,
+                                                  device=dev)
         n_retrieval = 0
         if retrieval_k and pairs is not None:
             # deterministic from the features: every process derives the
@@ -609,8 +648,9 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
             my_pairs = (pairs if pairs is not None
                         else exhaustive_pairs(len(images)))[
                 proc_id::proc_count]
-        putative = match_all_pairs(kps, descs, cfg, pairs=my_pairs,
-                                   progress=progress, mesh=mesh)
+        with spans.span(".match"):
+            putative = match_all_pairs(kps, descs, cfg, pairs=my_pairs,
+                                       progress=progress, mesh=mesh)
         sync()
         n_matched = len(putative)
         if sharded:
@@ -620,14 +660,12 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
                 out_dir, f"matches.putative.part{proc_id}.txt"), putative)
             _barrier(out_dir, "put", proc_id, proc_count)
             putative = _load_parts(out_dir, "putative", proc_count)
-    t2 = time.time()
-    with record_function("compute_matches.filter"):
+    with spans.span("compute_matches.filter") as t_filter:
         filt = geometric_filter(kps, putative, sizes, focals, cfg, seed=seed,
                                 progress=progress,
                                 sample_provider=sample_provider, mesh=mesh,
                                 block_shard=(proc_id, proc_count))
         sync()
-    t3 = time.time()
 
     if sharded:
         for tag, d in (("f", filt.f), ("e", filt.e), ("h", filt.h)):
@@ -646,34 +684,37 @@ def run_compute_matches(images: Sequence[np.ndarray], out_dir: str,
             filter_blocks=len(filter_blocks(putative, cfg)),
             processes=proc_count))
 
-    save_matches_txt(os.path.join(out_dir, "matches.putative.txt"), putative)
-    save_matches_txt(os.path.join(out_dir, "matches.f.txt"), filt.f)
-    save_matches_txt(os.path.join(out_dir, "matches.e.txt"), filt.e)
-    save_matches_txt(os.path.join(out_dir, "matches.h.txt"), filt.h)
-    n = len(images)
-    adjacency_svg(os.path.join(out_dir, "PutativeAdjacencyMatrix.svg"), n,
-                  {k: len(v) for k, v in putative.items()})
-    adjacency_svg(os.path.join(out_dir, "GeometricAdjacencyMatrix.svg"), n,
-                  {k: len(v) for k, v in filt.f.items()})
+    with spans.span("compute_matches.artifacts"):
+        save_matches_txt(os.path.join(out_dir, "matches.putative.txt"),
+                         putative)
+        save_matches_txt(os.path.join(out_dir, "matches.f.txt"), filt.f)
+        save_matches_txt(os.path.join(out_dir, "matches.e.txt"), filt.e)
+        save_matches_txt(os.path.join(out_dir, "matches.h.txt"), filt.h)
+        n = len(images)
+        adjacency_svg(os.path.join(out_dir, "PutativeAdjacencyMatrix.svg"),
+                      n, {k: len(v) for k, v in putative.items()})
+        adjacency_svg(os.path.join(out_dir, "GeometricAdjacencyMatrix.svg"),
+                      n, {k: len(v) for k, v in filt.f.items()})
 
-    stats = dict(filt.stats)
-    stats["keypoints"] = counts
-    if n_retrieval:
-        stats["pairs_retrieval"] = n_retrieval
-    stats["elapsed_s"] = time.time() - t0
-    stats["time_features_s"] = t1 - t0
-    stats["time_matching_s"] = t2 - t1
-    stats["time_filter_s"] = t3 - t2
+        stats = dict(filt.stats)
+        stats["keypoints"] = counts
+        if n_retrieval:
+            stats["pairs_retrieval"] = n_retrieval
+        stats["elapsed_s"] = step.seconds
+        stats["time_features_s"] = t_features.seconds
+        stats["time_matching_s"] = t_matching.seconds
+        stats["time_filter_s"] = t_filter.seconds
 
-    pair_rows = [{"i": int(i), "j": int(j),
-                  "putative": int(len(putative.get((i, j), ()))),
-                  "geometric": int(len(m)),
-                  "survival": (len(m)
-                               / max(len(putative.get((i, j), ())), 1))}
-                 for (i, j), m in sorted(filt.f.items(),
-                                         key=lambda kv: -len(kv[1]))]
-    write_matches_report(
-        os.path.join(out_dir, "Matching_Report.html"),
-        {k: v for k, v in stats.items() if isinstance(v, (int, float, str))},
-        pair_rows, keypoint_counts=counts, image_names=image_names)
+        pair_rows = [{"i": int(i), "j": int(j),
+                      "putative": int(len(putative.get((i, j), ()))),
+                      "geometric": int(len(m)),
+                      "survival": (len(m)
+                                   / max(len(putative.get((i, j), ())), 1))}
+                     for (i, j), m in sorted(filt.f.items(),
+                                             key=lambda kv: -len(kv[1]))]
+        write_matches_report(
+            os.path.join(out_dir, "Matching_Report.html"),
+            {k: v for k, v in stats.items()
+             if isinstance(v, (int, float, str))},
+            pair_rows, keypoint_counts=counts, image_names=image_names)
     return stats

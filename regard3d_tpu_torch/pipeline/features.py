@@ -28,7 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from regard3d_tpu_torch import native, runtime
+from regard3d_tpu_torch import native, runtime, spans
 from regard3d_tpu_torch.core.types import Descriptors, Keypoints
 from regard3d_tpu_torch.dist import mesh as meshlib
 from regard3d_tpu_torch.ingest import image_io
@@ -189,19 +189,26 @@ def image_buckets(images: Sequence[np.ndarray]) -> List[List[int]]:
 
 
 def _bucket_features(b, detector, cfg, max_keypoints, kp_size_factor, dev):
-    """One bucket's keypoints and descriptors, as numpy arrays."""
+    """One bucket's keypoints and descriptors, as numpy arrays. Spans
+    (under the caller's): ``.upload``, ``.detect``, ``.describe`` and
+    ``.readback`` (the host waiting on the device)."""
     with torch.no_grad():
-        data = torch.as_tensor(b.data, dtype=torch.float32, device=dev)
-        if detector in HOST_DETECTORS:
-            kps = _detect_host_bucket(b, detector, max_keypoints, dev)
-        else:
-            sizes = torch.as_tensor(b.true_sizes, device=dev)
-            kps = _detect_device(data, sizes[:, 0], sizes[:, 1], detector,
-                                 cfg, max_keypoints)
-        descs = liop.describe_liop(data, kps, kp_size_factor)
-    return (kps.mask.cpu().numpy(), kps.xy.cpu().numpy(),
-            kps.scale.cpu().numpy(), kps.angle.cpu().numpy(),
-            descs.data.cpu().numpy())
+        with spans.span(".upload"):
+            data = torch.as_tensor(b.data, dtype=torch.float32, device=dev)
+            sizes = (None if detector in HOST_DETECTORS
+                     else torch.as_tensor(b.true_sizes, device=dev))
+        with spans.span(".detect"):
+            if detector in HOST_DETECTORS:
+                kps = _detect_host_bucket(b, detector, max_keypoints, dev)
+            else:
+                kps = _detect_device(data, sizes[:, 0], sizes[:, 1],
+                                     detector, cfg, max_keypoints)
+        with spans.span(".describe"):
+            descs = liop.describe_liop(data, kps, kp_size_factor)
+    with spans.span(".readback"):
+        return (kps.mask.cpu().numpy(), kps.xy.cpu().numpy(),
+                kps.scale.cpu().numpy(), kps.angle.cpu().numpy(),
+                descs.data.cpu().numpy())
 
 
 def extract_features(images: Sequence[np.ndarray], out_dir: str,
@@ -229,22 +236,24 @@ def extract_features(images: Sequence[np.ndarray], out_dir: str,
     counts = [0] * len(images)
 
     cfg = ScaleSpaceConfig(dthreshold=threshold)
-    buckets = image_io.bucket_images([images[i] for i in todo]) if todo \
-        else []
+    with spans.span(".upload"):       # the buckets' stacked arrays
+        buckets = (image_io.bucket_images([images[i] for i in todo])
+                   if todo else [])
     run = lambda b, d: _bucket_features(b, detector, cfg, max_keypoints,
                                         kp_size_factor, d)
     results = (meshlib.run_on_mesh(run, buckets, mesh) if mesh is not None
                else (run(b, dev) for b in buckets))
     done = 0
     for b, (m_all, xy, sc, an, d_np) in zip(buckets, results):
-        for bi, orig_local in enumerate(b.indices):
-            img_index = todo[orig_local]
-            m = m_all[bi]
-            save_features(out_dir, img_index, xy[bi][m], sc[bi][m], an[bi][m],
-                          d_np[bi][m])
-            done += 1
-            if progress:
-                progress(done, len(todo))
+        with spans.span(".write"):
+            for bi, orig_local in enumerate(b.indices):
+                img_index = todo[orig_local]
+                m = m_all[bi]
+                save_features(out_dir, img_index, xy[bi][m], sc[bi][m],
+                              an[bi][m], d_np[bi][m])
+                done += 1
+                if progress:
+                    progress(done, len(todo))
 
     for i in my_images:
         with open(desc_path(out_dir, i), "rb") as f:

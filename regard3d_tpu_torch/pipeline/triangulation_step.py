@@ -21,13 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import sfm_data
 from regard3d_tpu_torch.core.types import Scene
 from regard3d_tpu_torch.export import ply as ply_mod
@@ -185,15 +184,32 @@ def run_triangulation(matches_dir: str, out_dir: str,
     secondary processes of a multi-process job, so only the primary writes
     (``dist/launch.py`` ``is_primary``)."""
     dev = runtime.resolve_device(device)
-    t0 = time.time()
+    with spans.collect() as col:
+        # every span of the step carries its prefix: the profiler mirrors a
+        # span onto the device's timeline, where a reader that keeps the
+        # step's spans by prefix must not take it for device work
+        with spans.span("triangulation.step") as step:
+            stats = _triangulation(
+                step, matches_dir, out_dir, images, intr_id, intr, models,
+                params, image_names, center_priors, seed, dev,
+                sample_provider, write_artifacts)
+        stats["spans"] = col.summary()
+    return stats
+
+
+def _triangulation(step, matches_dir, out_dir, images, intr_id, intr,
+                   models, params, image_names, center_priors, seed, dev,
+                   sample_provider, write_artifacts) -> Dict:
+    """``run_triangulation`` inside its step span ``step``."""
     os.makedirs(out_dir, exist_ok=True)
     image_sizes = np.asarray([[im.shape[1], im.shape[0]] for im in images])
 
     kind = "e" if params.engine == "global" else params.matches_kind
     dtype = np.float64 if params.f64 else np.float32
-    inputs, table = build_sfm_inputs(matches_dir, len(images), intr_id, intr,
-                                     models, image_sizes, kind, dtype=dtype,
-                                     device=dev)
+    with spans.span("triangulation.inputs"):
+        inputs, table = build_sfm_inputs(matches_dir, len(images), intr_id,
+                                         intr, models, image_sizes, kind,
+                                         dtype=dtype, device=dev)
     if params.engine == "global":
         result = global_sfm.run_global(
             inputs, global_sfm.GlobalConfig(
@@ -214,8 +230,20 @@ def run_triangulation(matches_dir: str, out_dir: str,
             seed=seed, device=dev, sample_provider=sample_provider,
             center_priors=(center_priors if params.use_gps else None))
     if params.dist_ba:
-        result = _dist_ba_polish(result, inputs, params, dev)
+        with spans.span("triangulation.dist_ba"):
+            result = _dist_ba_polish(result, inputs, params, dev)
 
+    with spans.span("triangulation.artifacts"):
+        stats = _write_artifacts(step, out_dir, images, inputs, result,
+                                 image_sizes, params, image_names,
+                                 write_artifacts)
+    return stats
+
+
+def _write_artifacts(step, out_dir, images, inputs, result, image_sizes,
+                     params, image_names, write_artifacts) -> Dict:
+    """Colours, the scene, its files and the report; the engine's stats
+    with ``elapsed_s`` (the step so far, before the report)."""
     colors = colorize_tracks(inputs, result, images)
     scene = result_to_scene(result, inputs, image_sizes, colors)
     ok = np.asarray(result.track_ok)
@@ -232,7 +260,7 @@ def run_triangulation(matches_dir: str, out_dir: str,
         ply_mod.write_ply(os.path.join(out_dir, "FinalColorized.ply"),
                           ply_mod.PlyData(xyz=X_np[ok], rgb=rgb))
     stats = dict(result.stats)
-    stats["elapsed_s"] = time.time() - t0
+    stats["elapsed_s"] = step.seconds
 
     # per-view residual tables + histogram (Generate_SfM_Report parity)
     tid = inputs.track_id.cpu().numpy()

@@ -37,9 +37,8 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.ba import lm
 from regard3d_tpu_torch.core import cameras
 from regard3d_tpu_torch.kernels import geometry, ransac
@@ -475,14 +474,14 @@ def run_global(inputs: inc.SfMInputs, cfg: GlobalConfig = GlobalConfig(),
     table = tracks_mod.TrackTable(tid_np, vid_np,
                                   inputs.feature_id.cpu().numpy(), T)
 
-    with record_function("triangulation.motions"), torch.no_grad():
+    with spans.span("triangulation.motions"), torch.no_grad():
         motions = compute_relative_motions(inputs, table, cfg, draws, V)
         sync()
     if not motions:
         raise ValueError("no relative motions could be estimated")
     connected = sorted({m.i for m in motions} | {m.j for m in motions})
 
-    with record_function("triangulation.averaging"), torch.no_grad():
+    with spans.span("triangulation.averaging"), torch.no_grad():
         R = average_rotations(motions, V, cfg.rotation_loss,
                               cfg.irls_iterations, device=dev, dtype=dtype)
         # translation averaging returns centres of mean norm 1: the
@@ -501,7 +500,7 @@ def run_global(inputs: inc.SfMInputs, cfg: GlobalConfig = GlobalConfig(),
     tri_table = track_table(tid, T)
 
     def triangulate():
-        with record_function("triangulation.triangulation"), \
+        with spans.span("triangulation.triangulation"), \
                 torch.no_grad():
             tri = triangulate_tracks(
                 R, C, torch.as_tensor(pose_mask, device=dev), tid, vid,
@@ -521,7 +520,7 @@ def run_global(inputs: inc.SfMInputs, cfg: GlobalConfig = GlobalConfig(),
 
     def run_ba(iterations, refine):
         nonlocal R, C, X, intr
-        with record_function("triangulation.ba"):
+        with spans.span("triangulation.ba"):
             w = obs_active & track_ok[tid_np] & pose_mask[vid_np]
             obs_ba = lm.BAObservations(
                 view_id=vid, intr_id=g_obs, point_id=tid,
@@ -546,7 +545,7 @@ def run_global(inputs: inc.SfMInputs, cfg: GlobalConfig = GlobalConfig(),
     # the first round tests at twice the threshold.
     run_ba(cfg.ba_iterations, False)
     for round_i in range(3):
-        with record_function("triangulation.outlier"), torch.no_grad():
+        with spans.span("triangulation.outlier"), torch.no_grad():
             r2 = residuals_px().cpu().numpy()
         thr = cfg.max_err_px * (2.0 if round_i == 0 else 1.0)
         obs_active = pose_mask[vid_np] & (r2 <= thr ** 2)

@@ -45,14 +45,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.ba import lm
 from regard3d_tpu_torch.core import cameras, metrics
 from regard3d_tpu_torch.kernels import geometry, ransac
@@ -655,9 +653,8 @@ def run_incremental(inputs: SfMInputs,
                                   inputs.feature_id.cpu().numpy(), T)
 
     # --- initialization: a stellar pod, the user's pair (v1) or MaxPair ---
-    t_init0 = time.perf_counter()
     pod_size = 0
-    with record_function("triangulation.init"), torch.no_grad():
+    with spans.span("triangulation.init") as sp_init, torch.no_grad():
         xn = _normalized_xy(inputs, intr).cpu().numpy()
         if initial_pair is None and cfg.initializer == "stellar":
             pod = _stellar_seed(inputs, table, draws, cfg, V, xn, host)
@@ -695,7 +692,6 @@ def run_incremental(inputs: SfMInputs,
             obs_active[oi[~inl]] = False
             obs_active[oj[~inl]] = False
         sync()
-    init_elapsed = time.perf_counter() - t_init0
 
     tid, vid = inputs.track_id, inputs.view_id
     g_obs = inputs.intr_id[vid]
@@ -703,7 +699,7 @@ def run_incremental(inputs: SfMInputs,
     tri_table = track_table(tid, T)
 
     prof = {"resection_s": 0.0, "triangulation_s": 0.0, "ba_s": 0.0,
-            "outlier_s": 0.0, "host_s": 0.0, "init_s": init_elapsed,
+            "outlier_s": 0.0, "host_s": 0.0, "init_s": sp_init.seconds,
             "resection_rounds": 0, "ba_rounds": 0, "ba_iters": 0}
 
     def residuals_px():
@@ -712,8 +708,8 @@ def run_incremental(inputs: SfMInputs,
 
     def retriangulate():
         nonlocal X, track_ok
-        t0 = time.perf_counter()
-        with record_function("triangulation.triangulation"), torch.no_grad():
+        with spans.span("triangulation.triangulation") as sp, \
+                torch.no_grad():
             tri = triangulate_tracks(
                 R, C, torch.as_tensor(pose_mask, device=dev), tid, vid,
                 torch.as_tensor(obs_active, device=dev),
@@ -721,7 +717,7 @@ def run_incremental(inputs: SfMInputs,
                 cfg.max_err_px, mean_focal, table=tri_table)
             X = tri.X
             track_ok = tri.ok.cpu().numpy()
-        prof["triangulation_s"] += time.perf_counter() - t0
+        prof["triangulation_s"] += sp.seconds
 
     retriangulate()
 
@@ -729,8 +725,7 @@ def run_incremental(inputs: SfMInputs,
 
     def run_ba(iterations, refine):
         nonlocal R, C, X, intr
-        t0 = time.perf_counter()
-        with record_function("triangulation.ba"):
+        with spans.span("triangulation.ba") as sp:
             w = obs_active & track_ok[tid_np] & pose_mask[vid_np]
             obs_ba = lm.BAObservations(
                 view_id=vid, intr_id=g_obs, point_id=tid,
@@ -750,20 +745,20 @@ def run_incremental(inputs: SfMInputs,
                                           layout=ba_layout[0], device=dev)
             R, C, intr, X = out.R, out.C, out.intr, out.X
             sync()
-        prof["ba_s"] += time.perf_counter() - t0
+        prof["ba_s"] += sp.seconds
         prof["ba_rounds"] += 1
         prof["ba_iters"] += stats.iterations
         return stats
 
     def reject_outliers():
         nonlocal obs_active
-        t0 = time.perf_counter()
-        with record_function("triangulation.outlier"), torch.no_grad():
-            r2 = residuals_px().cpu().numpy()
-        live = obs_active & track_ok[tid_np] & pose_mask[vid_np]
-        bad = live & (r2 > cfg.max_err_px ** 2)
-        obs_active &= ~bad
-        prof["outlier_s"] += time.perf_counter() - t0
+        with spans.span("triangulation.outlier") as sp:
+            with torch.no_grad():
+                r2 = residuals_px().cpu().numpy()
+            live = obs_active & track_ok[tid_np] & pose_mask[vid_np]
+            bad = live & (r2 > cfg.max_err_px ** 2)
+            obs_active &= ~bad
+        prof["outlier_s"] += sp.seconds
         return int(bad.sum())
 
     run_ba(cfg.ba_iterations, False)
@@ -782,85 +777,84 @@ def run_incremental(inputs: SfMInputs,
     order_added = [int(v) for v in np.nonzero(pose_mask)[0]]
     failed_at: Dict[int, int] = {}     # view -> score when resection failed
     while True:
-        t_host = time.perf_counter()
-        vis_rows = obs_active & track_ok[tid_np]
-        scores = np.bincount(vid_np[vis_rows], minlength=V)
-        cand_scores = {}
-        for v in np.nonzero(~pose_mask)[0]:
-            vis = int(scores[v])
-            if vis < cfg.min_resection_points:
-                continue
-            if v in failed_at and vis < 1.2 * failed_at[v]:
-                continue
-            cand_scores[int(v)] = vis
-        if not cand_scores:
-            break
-        best_score = max(cand_scores.values())
-        thresh = max(cfg.min_resection_points,
-                     int(cfg.resection_group_frac * best_score))
-        group = sorted((v for v, s in cand_scores.items() if s >= thresh),
-                       key=lambda v: -cand_scores[v])
-        group = group[:max(1, cfg.resection_group)]
+        with spans.span("triangulation.select") as sp:
+            vis_rows = obs_active & track_ok[tid_np]
+            scores = np.bincount(vid_np[vis_rows], minlength=V)
+            cand_scores = {}
+            for v in np.nonzero(~pose_mask)[0]:
+                vis = int(scores[v])
+                if vis < cfg.min_resection_points:
+                    continue
+                if v in failed_at and vis < 1.2 * failed_at[v]:
+                    continue
+                cand_scores[int(v)] = vis
+            if not cand_scores:
+                break
+            best_score = max(cand_scores.values())
+            thresh = max(cfg.min_resection_points,
+                         int(cfg.resection_group_frac * best_score))
+            group = sorted((v for v, s in cand_scores.items() if s >= thresh),
+                           key=lambda v: -cand_scores[v])
+            group = group[:max(1, cfg.resection_group)]
 
-        g_rows = []
-        for v in group:
-            rows = rows_of_view(v)
-            rows = rows[obs_active[rows]]
-            rows = rows[track_ok[tid_np[rows]]]
-            g_rows.append(rows)
-        P = len(group)
-        Xh = X.cpu().numpy()
-        Xv = np.zeros((P, cap_res, 3), Xh.dtype)
-        xv = np.zeros((P, cap_res, 2), xn.dtype)
-        maskv = np.zeros((P, cap_res), bool)
-        max_err = np.full((P,), 1.0, np.float32)
-        for bi, (v, rows) in enumerate(zip(group, g_rows)):
-            n = len(rows)
-            Xv[bi, :n] = Xh[tid_np[rows]]
-            xv[bi, :n] = xn[rows]
-            maskv[bi, :n] = True
-            max_err[bi] = (cfg.max_err_px / float(host["intr"][iid_np[v], 0])
-                           ) ** 2
-        idx = draws("resection", maskv, cfg.resection_iters, 3)
-        prof["host_s"] += time.perf_counter() - t_host
+            g_rows = []
+            for v in group:
+                rows = rows_of_view(v)
+                rows = rows[obs_active[rows]]
+                rows = rows[track_ok[tid_np[rows]]]
+                g_rows.append(rows)
+            P = len(group)
+            Xh = X.cpu().numpy()
+            Xv = np.zeros((P, cap_res, 3), Xh.dtype)
+            xv = np.zeros((P, cap_res, 2), xn.dtype)
+            maskv = np.zeros((P, cap_res), bool)
+            max_err = np.full((P,), 1.0, np.float32)
+            for bi, (v, rows) in enumerate(zip(group, g_rows)):
+                n = len(rows)
+                Xv[bi, :n] = Xh[tid_np[rows]]
+                xv[bi, :n] = xn[rows]
+                maskv[bi, :n] = True
+                max_err[bi] = (cfg.max_err_px
+                               / float(host["intr"][iid_np[v], 0])) ** 2
+            idx = draws("resection", maskv, cfg.resection_iters, 3)
+        prof["host_s"] += sp.seconds
 
-        t_res = time.perf_counter()
-        with record_function("triangulation.resection"), torch.no_grad():
+        with spans.span("triangulation.resection") as sp, \
+                torch.no_grad():
             t = lambda a: torch.as_tensor(a, device=dev)
             rr = ransac.acransac_resection_batch(
                 None, t(Xv), t(xv), t(maskv), t(max_err).to(dtype),
                 iters=cfg.resection_iters, idx=t(idx))
             valid = rr.valid.cpu().numpy()
             inl_all = rr.inliers.cpu().numpy()
-        prof["resection_s"] += time.perf_counter() - t_res
+        prof["resection_s"] += sp.seconds
         prof["resection_rounds"] += 1
 
-        t_host = time.perf_counter()
-        accepted = [bi for bi in range(P) if valid[bi]]
-        for bi in range(P):
-            v = group[bi]
-            if valid[bi]:
-                failed_at.pop(v, None)
-            else:
-                failed_at[v] = cand_scores[v]
+        with spans.span("triangulation.select") as sp:
+            accepted = [bi for bi in range(P) if valid[bi]]
+            for bi in range(P):
+                v = group[bi]
+                if valid[bi]:
+                    failed_at.pop(v, None)
+                else:
+                    failed_at[v] = cand_scores[v]
+            if accepted:
+                acc_views = torch.as_tensor([group[bi] for bi in accepted],
+                                            device=dev)
+                acc_idx = torch.as_tensor(accepted, device=dev)
+                R = R.clone()
+                C = C.clone()
+                R[acc_views] = rr.R[acc_idx]
+                C[acc_views] = rr.C[acc_idx]
+                pose_mask[[group[bi] for bi in accepted]] = True
+                order_added.extend(group[bi] for bi in accepted)
+                for bi in accepted:
+                    rows = g_rows[bi]
+                    obs_active[rows[~inl_all[bi, :len(rows)]]] = False
+        prof["host_s"] += sp.seconds
         if accepted:
-            acc_views = torch.as_tensor([group[bi] for bi in accepted],
-                                        device=dev)
-            acc_idx = torch.as_tensor(accepted, device=dev)
-            R = R.clone()
-            C = C.clone()
-            R[acc_views] = rr.R[acc_idx]
-            C[acc_views] = rr.C[acc_idx]
-            pose_mask[[group[bi] for bi in accepted]] = True
-            order_added.extend(group[bi] for bi in accepted)
-            for bi in accepted:
-                rows = g_rows[bi]
-                obs_active[rows[~inl_all[bi, :len(rows)]]] = False
-            prof["host_s"] += time.perf_counter() - t_host
             retriangulate()
             added_since_ba += len(accepted)
-        else:
-            prof["host_s"] += time.perf_counter() - t_host
         if added_since_ba >= cfg.ba_every:
             run_ba(cfg.ba_iterations, False)
             reject_outliers()
@@ -883,7 +877,7 @@ def run_incremental(inputs: SfMInputs,
         pri = np.asarray(center_priors, np.float64)
         pm = pose_mask & np.isfinite(pri).all(axis=1)
         if pm.sum() >= 3:
-            with record_function("triangulation.ba"):
+            with spans.span("triangulation.ba"):
                 C_np = C.cpu().numpy()
                 sim = metrics.umeyama(C_np[pm], pri[pm])
                 # x_cam = R_v (X - C_v); world transform X' = s R X + t:

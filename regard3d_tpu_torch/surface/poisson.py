@@ -40,9 +40,8 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core.sfm_data import _np
 
 
@@ -196,17 +195,17 @@ def reconstruct(xyz: np.ndarray, normals: np.ndarray, depth: int = 7,
 
     with torch.no_grad():
         unit_t = torch.as_tensor(unit, **f32)
-        with record_function("surface.splat"):
+        with spans.span("surface.splat"):
             V, W = splat_field(unit_t, torch.as_tensor(nrm, **f32), n)
         sigma = 1.5 * float(np.sqrt(samples_per_node))
-        with record_function("surface.solve"):
+        with spans.span("surface.solve"):
             chi = solve_indicator(V, n, sigma_vox=sigma,
                                   screen=float(point_weight) * 1e-2)
             del V
             # isolevel: mean of chi at the input samples
             iso = float(torch.mean(sample_trilinear(chi, unit_t)))
             chi_np = _np(chi)
-        with record_function("surface.marching"):
+        with spans.span("surface.marching"):
             verts_u, faces = marching.marching_tetrahedra(chi_np, iso)
         if stats is not None:
             stats.update(grid_stats(xyz, depth),
@@ -216,7 +215,7 @@ def reconstruct(xyz: np.ndarray, normals: np.ndarray, depth: int = 7,
             # trim triangles lying in low-density space (SurfaceTrimmer
             # role): threshold is a percentile-like 0..10 knob on the
             # smoothed density
-            with record_function("surface.trim"):
+            with spans.span("surface.trim"):
                 Ws = _smoothed_density(W, n)
                 cent = verts_u[faces].mean(1)
                 dens = _np(sample_trilinear(Ws, torch.as_tensor(cent,

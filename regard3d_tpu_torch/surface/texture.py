@@ -41,9 +41,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
-from regard3d_tpu_torch import runtime
+from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import cameras
 from regard3d_tpu_torch.core.sfm_data import _np
 from regard3d_tpu_torch.core.types import Scene
@@ -370,7 +369,7 @@ def texture_mesh(scene: Scene, images: Sequence[np.ndarray],
 
     with torch.no_grad():
         imgs = torch.as_tensor(images_stacked, device=dev)
-        with record_function("texture.visibility"):
+        with spans.span("texture.visibility"):
             scores, means = face_view_data(
                 scene, imgs, sizes, view_ids, verts, faces,
                 zbuf_scale=zbuf_scale, depth_tol=depth_tol, device=dev)
@@ -403,7 +402,7 @@ def texture_mesh(scene: Scene, images: Sequence[np.ndarray],
         adj_corners = np.where(hit[:, None], adj_pairs[pos],
                                0.0).reshape(F, 3, 3).astype(np.float32)
 
-    with torch.no_grad(), record_function("texture.sample"):
+    with torch.no_grad(), spans.span("texture.sample"):
         bary = torch.as_tensor(_block_barycentrics(B, pad), device=dev)
         cams = _view_cameras(scene, view_ids, dev)
         sizes_t = torch.as_tensor(sizes, device=dev)

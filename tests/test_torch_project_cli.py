@@ -50,6 +50,7 @@ from regard3d_tpu.core.types import Descriptors as JDescriptors
 from regard3d_tpu.pipeline import compute_matches as jcm
 from regard3d_tpu.pipeline.project import Project as JProject
 from regard3d_tpu_torch import cli as tcli
+from regard3d_tpu_torch import spans
 from regard3d_tpu_torch.core.sfm_data import load_npz
 from regard3d_tpu_torch.core.types import Descriptors as TDescriptors
 from regard3d_tpu_torch.ingest import geodesy, image_io, synth
@@ -183,9 +184,39 @@ def test_matches_artifacts_equal_a_direct_call(qs, tmp_path):
         assert filecmp.cmp(os.path.join(cli_dir, n), tmp_path / n,
                            shallow=False), n
     timing = ("elapsed_s", "time_features_s", "time_matching_s",
-              "time_filter_s")
+              "time_filter_s", "spans")
     assert {k: v for k, v in stats.items() if k not in timing} == \
         {k: v for k, v in qs["matches"].items() if k not in timing}
+    # the same spans, calls and counters; only their seconds differ
+    counts = lambda sp: {name: {k: v for k, v in row.items()
+                                if k not in ("s", "self_s")}
+                         for name, row in sp.items()}
+    assert counts(stats["spans"]) == counts(qs["matches"]["spans"])
+
+
+def test_profile_trace_holds_the_host_spans(qs):
+    """``matches --profile``'s trace carries the recorder's spans on a
+    track of their own, each within 0.5 ms of the profiler's own event of
+    the same span (on the CPU the profiler records both)."""
+    with open(qs["base"] / "prof" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    ours = {}
+    theirs = {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        into = ours if e.get("cat") == "host_span" else theirs
+        into.setdefault(e["name"], []).append(e)
+    for name in ("compute_matches.filter.block", "compute_matches.artifacts",
+                 "compute_matches.features.detect", "compute_matches.step"):
+        assert name in ours, name
+        a = sorted(e["ts"] for e in ours[name])
+        b = sorted(e["ts"] for e in theirs[name])
+        assert len(a) == len(b), name
+        assert max(abs(x - y) for x, y in zip(a, b)) < 500.0, name
+    assert all(e["tid"] >= spans.HOST_SPANS_TID
+               for evs in ours.values() for e in evs)
+    assert set(ours) == {"r3d.matches", *qs["matches"]["spans"]}
 
 
 def test_reference_cli_reads_the_port_project(qs):
