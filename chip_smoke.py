@@ -16,14 +16,15 @@ run if it fails:
     prologue spills; print how many clusters of the single-pair call's
     ranks each dtype's FULL kernel can hold at once
     (``cudaOccupancyMaxActiveClusters``) and fail unless its 4000-row
-    call's clusters fit in one wave;
+    call's clusters fit in one wave; print the E-sweep kernels' registers,
+    spills and local memory (``csrc/essential5.cu``);
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
     pairs, 4096 keypoints, the default f32 brute-force matcher, 1024 RANSAC
     iterations, focals at 1.03x the truth); check the artifacts parse, hold
     the F inliers against the ground-truth epipolar geometry, and show the
-    matcher kernel was launched on that run. Then the stage's matching once
+    matcher kernel and the E-sweep kernel were launched on that run. Then the stage's matching once
     more, ``match_all_pairs`` under the flann (bf16) preset on the stage's
     descriptors: its bf16 kernel launched, its matches agree with the f32
     run's;
@@ -51,7 +52,13 @@ run if it fails:
     workspace) equal single calls bit for bit; the public ``match_pair`` on
     CUDA tensors launches K2 once and agrees with its ``use_kernel=False``
     path; the bf16 kernel's instance for D set at run time agrees at
-    D = 256;
+    D = 256; the E sweep at the compute-matches cell's shapes (55 pairs,
+    cap 1024, 1024 draws) against its plain version: winners fixed by
+    construction (mask, tiles, ties), winners on padded noisy pairs held
+    to a rounding yardstick, ``acransac_e_batch``'s inlier sets, every
+    draw's candidates through the kernel's solver, the kernel's time
+    through the wrapper and as its C call, the plain version's, and its
+    FP32 bound;
 (e) where the time goes: the stage again on its first 4 views (6 pairs),
     warm, once on the host clock and once under ``torch.profiler``; per
     phase (the stage's own profiler
@@ -194,6 +201,7 @@ import collections
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import shlex
 import signal
@@ -315,16 +323,21 @@ def phase_build():
     from regard3d_tpu_torch import native
     from regard3d_tpu_torch.kernels import _build
     from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.kernels import ransac
     from regard3d_tpu_torch.tools import kernel_report
     t0 = time.time()
-    # nvcc and g++ side by side: the matcher's kernels and (m)'s host
-    # library (built here, so no CLI process of (j) builds anything)
+    # nvcc and g++ side by side: the matcher's kernels, the E sweep's and
+    # (m)'s host library (built here, so no CLI process of (j) builds
+    # anything)
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         host = pool.submit(native.build)
+        e_lib = pool.submit(_build.build, ransac._E_SOURCE)
         lib = _build.build(match_mod._SOURCE)
         log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
         log(f"(a) built {os.path.basename(host.result())} from "
             f"{os.path.relpath(native.SOURCE)} in {time.time() - t0:.1f} s")
+        e_lib = e_lib.result()
+        log(f"(a) built {ransac._E_SOURCE} in {time.time() - t0:.1f} s")
     usage = _build.ptxas_usage(_build.build_log(lib))
     for name, ops in sorted(_build.sass_opcodes(lib).items()):
         log(f"(a) {name}: {usage.get(name)}; SASS "
@@ -336,6 +349,14 @@ def phase_build():
         check(n[0] == n[1] == n[2] > 0,
               f"HGMMA of full, mm_only, min_only (D={dc}; 0: set at run "
               f"time): {n}")
+    # the E sweep's instances: registers, spills and local memory (its
+    # 10x20 elimination lives there by design)
+    e_usage = _build.ptxas_usage(_build.build_log(e_lib))
+    for name in E_KERNELS:
+        log(f"(a) {name}: {e_usage.get(name)}")
+        check(e_usage.get(name, {}).get("registers", 0) > 0,
+              f"ptxas reported no {name}")
+    usage.update(e_usage)
     for name in ("l2_top2_f32_kernel", "l2_top2_wgmma_kernel<0,144,4>",
                  "l2_top2_prep_kernel"):
         u = usage.get(name, {})
@@ -392,14 +413,17 @@ def epipolar_check(ds, out):
 
 def phase_stage(ds, workdir):
     from regard3d_tpu_torch.kernels import match as match_mod
+    from regard3d_tpu_torch.kernels import ransac
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline import features as fm
 
     out = os.path.join(workdir, "matches")
     torch.cuda.reset_peak_memory_stats()
     match_mod.reset_launch_counts()
+    e_before = dict(ransac.LAUNCHES)
     stats = run_stage(ds, out)
     launches = dict(match_mod.LAUNCHES)
+    launches.update({k: v - e_before[k] for k, v in ransac.LAUNCHES.items()})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # artifacts exist and parse
@@ -439,6 +463,8 @@ def phase_stage(ds, workdir):
     log("(b) stage " + json.dumps(summary))
     check(launches["l2_top2_block_f32"] > 0,
           "the matcher kernel was not launched on the main path")
+    check(launches["e_sweep_f32"] > 0,
+          "the E-sweep kernel was not launched on the main path")
     check(n_f * 2 >= n_pairs, f"only {n_f} of {n_pairs} pairs F-validated")
     check(med < 1.0, f"median symmetric epipolar distance {med:.3f} px")
     return out, launches
@@ -505,10 +531,21 @@ def _close(name, a, b, rtol, atol):
 ROW_PATH = {"l2_top2_block_f32": "stage", "l2_top2_block_bf16": "flann",
             "l2_top2_f32": "stage", "l2_top2_bf16": "stage",
             "l2_top2_block_mm_only_bf16": "profile",
-            "l2_top2_block_min_only_bf16": "profile"}
+            "l2_top2_block_min_only_bf16": "profile",
+            "e_sweep_f32": "stage"}
 K1 = "regard3d_tpu/kernels/match.py:246"
 K2 = "regard3d_tpu/kernels/match.py:151"
 K3 = "tools/profile_matcher.py:86"
+E_REPLACES = ("none: the reference's sweep was XLA's compiled lax.scan, "
+              "regard3d_tpu/kernels/ransac.py:_e_one")
+# (c) the E sweep at the compute-matches cell's shapes (55 pairs, cap 1024,
+# 1024 iterations); FLOP of a draw's Nistér solve and of a candidate's
+# score at one slot, counted in csrc/essential5.cu's source note
+E_SHAPE = {"P": 55, "cap": 1024, "iters": 1024}
+E_SOLVE_FLOP, E_SCORE_FLOP = 1.69e5, 24
+E_KERNELS = ("e_sweep_kernel<float>", "e_select_kernel<float>",
+             "e_solve_kernel<float>", "e_sweep_kernel<double>",
+             "e_select_kernel<double>", "e_solve_kernel<double>")
 
 
 def host_us(fn, reps: int = 50) -> float:
@@ -554,7 +591,8 @@ ROW_KERNEL = {"l2_top2_block_f32": "l2_top2_f32_kernel",
               "l2_top2_block_bf16": "l2_top2_wgmma_kernel<0,144,",
               "l2_top2_bf16": "l2_top2_wgmma_kernel<0,144,",
               "l2_top2_block_mm_only_bf16": "l2_top2_wgmma_kernel<1,144,",
-              "l2_top2_block_min_only_bf16": "l2_top2_wgmma_kernel<2,144,"}
+              "l2_top2_block_min_only_bf16": "l2_top2_wgmma_kernel<2,144,",
+              "e_sweep_f32": "e_sweep_kernel<float>"}
 
 
 def row_usage(usage, name):
@@ -773,6 +811,255 @@ def phase_kernels(desc, mask, parr, usage):
     log(f"(c) match_pairs_batched (3 x 1000 x 777): K1 launched once, idx "
         f"equal on {same:.6f}, max |d1 err| {err:.3e}")
     return rows
+
+
+def e_scenes(P, cap, seed=0, noise=3e-4):
+    """(c) P pairs of ``cap`` slots in normalized coordinates, 40-100% of
+    them filled (the rest masked, as in the filter's padded blocks), with
+    matches between two calibrated views of a random scene, Gaussian noise
+    of ``noise`` (the 4 px threshold's scale at f = 2662 is 1.5e-3) and 30%
+    of them replaced by random points; numpy x1, x2 (P, cap, 2), mask (P,
+    cap). Every all-inlier draw's model scores about as well as the next,
+    so a change of rounding alone may pick another winner, and the points
+    near the threshold move in or out of its inlier set."""
+    rng = np.random.default_rng(seed)
+    x1 = np.zeros((P, cap, 2))
+    x2 = np.zeros((P, cap, 2))
+    mask = np.zeros((P, cap), bool)
+    for p in range(P):
+        n = int(cap * rng.uniform(0.4, 1.0))
+        X = rng.uniform(-1, 1, (n, 3)) + [0, 0, 4]
+        w = rng.normal(size=3) * 0.1
+        th = np.linalg.norm(w)
+        k = np.cross(np.eye(3), w / th)
+        R = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+        t = rng.normal(size=3)
+        Y = X @ R.T + t / np.linalg.norm(t)
+        x1[p, :n] = X[:, :2] / X[:, 2:] + rng.normal(size=(n, 2)) * noise
+        x2[p, :n] = Y[:, :2] / Y[:, 2:] + rng.normal(size=(n, 2)) * noise
+        n_out = int(0.3 * n)
+        x2[p, :n_out] = rng.uniform(-0.4, 0.4, (n_out, 2))
+        mask[p, :n] = True
+    return x1, x2, mask
+
+
+def _e_motion(rng, n, noise):
+    """n matches between two calibrated views of a random scene, with
+    Gaussian noise; returns x1, x2 (n, 2) and the true E, unit norm."""
+    X = rng.uniform(-1, 1, (n, 3)) + [0, 0, 4]
+    w = rng.normal(size=3) * 0.1
+    th = np.linalg.norm(w)
+    k = np.cross(np.eye(3), w / th)
+    R = np.eye(3) + np.sin(th) * k + (1 - np.cos(th)) * k @ k
+    t = rng.normal(size=3)
+    t /= np.linalg.norm(t)
+    Y = X @ R.T + t
+    E = np.cross(np.eye(3), t) @ R
+    return (X[:, :2] / X[:, 2:] + rng.normal(size=(n, 2)) * noise,
+            Y[:, :2] / Y[:, 2:] + rng.normal(size=(n, 2)) * noise,
+            E / np.linalg.norm(E))
+
+
+def e_rivals(P, cap, iters, seed=0, noise=1e-6, tile=256, good=8):
+    """(c) P pairs whose winner is fixed by construction, so that a sweep
+    that ignores the mask, scores only the first ``tile`` slots or breaks
+    the tie order picks another. In each live pair the first ``tile`` slots
+    hold a rival motion, the next m1 (tile + 48 to 2 tile - 32) the true
+    one, and the masked tail the rival again: over the live slots the true
+    motion has the most inliers, over the first tile or over every slot
+    the rival has. ``good`` draws (at random positions) take five true
+    matches, one five rival matches of the live slots and one of the
+    masked tail; every other draw mixes two rival and three true matches.
+    At E_SHAPE the winners of every live pair scored at most 0.5% above
+    the true E (the plain sweep on the CPU; on the card the plain 0.10%,
+    the kernel 0.49%), and the plain sweep without the mask or on the
+    first tile alone 40-80% above it at the worst pair. The last pair has
+    every slot masked, so every candidate ties and draw 0's first candidate
+    wins. Returns numpy x1, x2 (P, cap, 2), mask (P, cap), idx (P, iters,
+    5) and the true E (P, 3, 3)."""
+    rng = np.random.default_rng(seed)
+    x1 = np.zeros((P, cap, 2))
+    x2 = np.zeros((P, cap, 2))
+    mask = np.zeros((P, cap), bool)
+    idx = np.zeros((P, iters, 5), np.int64)
+    E = np.zeros((P, 3, 3))
+    for p in range(P):
+        m1 = int(rng.integers(tile + 48, 2 * tile - 32))
+        n = tile + m1
+        a1, b1, E[p] = _e_motion(rng, m1, noise)
+        a2, b2, _ = _e_motion(rng, cap - m1, noise)
+        x1[p, :tile], x2[p, :tile] = a2[:tile], b2[:tile]
+        x1[p, tile:n], x2[p, tile:n] = a1, b1
+        x1[p, n:], x2[p, n:] = a2[tile:], b2[tile:]
+        mask[p, :n] = p < P - 1
+        idx[p] = np.concatenate([rng.integers(0, tile, (iters, 2)),
+                                 rng.integers(tile, n, (iters, 3))], 1)
+        k = rng.choice(iters, good + 2, replace=False)
+        for j in k[:good]:
+            idx[p, j] = rng.choice(np.arange(tile, n), 5, replace=False)
+        idx[p, k[-2]] = rng.choice(tile, 5, replace=False)
+        idx[p, k[-1]] = rng.choice(np.arange(n, cap), 5, replace=False)
+    return x1, x2, mask, idx, E
+
+
+def e_c_call(x1, x2, mask, me, idx):
+    """The E sweep's C call alone (``r3d_e_sweep``) on a workspace and
+    outputs allocated once, as a function of no arguments that returns its
+    error code."""
+    from regard3d_tpu_torch.kernels import ransac
+    lib = ransac._e_lib()
+    (P, cap, _), D = x1.shape, idx.shape[1]
+    start, dk = ransac._e_tables(x1.device, x1.dtype)
+    work = torch.empty((lib.r3d_e_sweep_workspace(0, P, D),),
+                       dtype=torch.uint8, device=x1.device)
+    model = torch.empty((P, 3, 3), device=x1.device)
+    ok = torch.empty((P,), dtype=torch.bool, device=x1.device)
+    args = (0, x1.device.index, x1.data_ptr(), x2.data_ptr(), mask.data_ptr(),
+            me.data_ptr(), idx.data_ptr(), P, cap, D, start.data_ptr(),
+            dk.data_ptr(), work.data_ptr(), model.data_ptr(), ok.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    return lambda: lib.r3d_e_sweep(*args)
+
+
+def phase_e_sweep(usage):
+    """(c) the E-sweep kernel against its plain version at the
+    compute-matches cell's shapes (E_SHAPE): on ``e_rivals``' pairs both
+    select the constructed winner (scoring within 2% of the true E) and,
+    on the fully masked pair, draw 0's first candidate; on ``e_scenes``'
+    padded, noisy pairs the winners have the plain version's
+    ok and a score as close to the plain winner's as rounding alone puts
+    it (the yardstick is the plain sweep on x1 moved by one part in 1e7),
+    and ``acransac_e_batch``'s inlier sets, on two blocks, lie within a set
+    distance of 0.05 of the plain version's on 99% of pairs (the card
+    tests' limits); the candidates of all P x iters draws through the
+    kernel's solver against ``fit_essential_5pt`` (up to sign): 90% within
+    1e-2, ok agreeing on 95%; the kernel's time through the wrapper and as
+    its C call alone, the plain version's, and the bound (FP32 FLOP counted
+    in csrc/essential5.cu's note, at 67 TFLOP/s)."""
+    from regard3d_tpu_torch.kernels import geometry, ransac
+    P, cap, iters = E_SHAPE["P"], E_SHAPE["cap"], E_SHAPE["iters"]
+    t = lambda a: torch.tensor(a, dtype=torch.float32, device="cuda")
+    me = torch.full((P,), (4.0 / 2662.0) ** 2, device="cuda")
+    # the constructed winners
+    r1, r2, rm, ridx, rE = e_rivals(P, cap, iters)
+    r1, r2, rm, ridx = t(r1), t(r2), torch.tensor(rm, device="cuda"), \
+        torch.tensor(ridx, device="cuda")
+    before = ransac.LAUNCHES["e_sweep_f32"]
+    Mk, okk = ransac.e_sweep(r1, r2, rm, me, ridx)
+    check(ransac.LAUNCHES["e_sweep_f32"] == before + 1,
+          "e_sweep did not launch the kernel once")
+    Mp, okp = ransac.e_sweep_plain(r1, r2, rm, me, ridx)
+
+    # each live pair's winner against the true E, by the plain score
+    rscore = lambda M: torch.minimum(torch.where(rm, ransac._epi_resid(
+        M[:, None], {"x1": r1, "x2": r2})[:, 0], ransac._BIG),
+        me[:, None]).sum(-1)[:-1]
+    truth = rscore(t(rE))
+    rival_k = float((rscore(Mk) / truth).max()) - 1.0
+    rival_p = float((rscore(Mp) / truth).max()) - 1.0
+    check(rival_p <= 2e-2, f"E sweep: the plain version's winner scores "
+          f"{rival_p:.3e} above the true E (the scenes are wrong)")
+    check(rival_k <= 2e-2 and bool(okk[:-1].all()),
+          f"E sweep: the kernel's winner scores {rival_k:.3e} above the "
+          f"true E (mask, tiles or selection)")
+    E0, ok0 = ransac.essential_5pt(r1[-1:, ridx[-1, 0]], r2[-1:, ridx[-1, 0]])
+    check(bool(okk[-1] == ok0[0, 0]) and torch.allclose(
+        Mk[-1], E0[0, 0], rtol=0, atol=1e-6, equal_nan=True),
+          "E sweep: all candidates tied, and the winner is not draw 0's "
+          "first candidate")
+    # padded, noisy scenes: the winners' scores and the inlier sets
+    la = torch.full((P,), -3.0, device="cuda")
+    near, scores = [], None
+    for seed in (0, 1):
+        x1, x2, mask = e_scenes(P, cap, seed)
+        x1_moved = t(x1 * (1 + 1e-7 * np.random.default_rng(
+            seed + 10).normal(size=x1.shape)))
+        x1, x2, mask = t(x1), t(x2), torch.tensor(mask, device="cuda")
+        idx = torch.stack([ransac._draw_samples(
+            torch.Generator().manual_seed(seed * P + p), mask[p].cpu(),
+            iters, 5) for p in range(P)]).cuda()
+        got = ransac.acransac_e_batch(None, x1, x2, mask, la, me,
+                                      iters=iters, idx=idx)
+        kernel_sweep = ransac.e_sweep
+        try:
+            ransac.e_sweep = ransac.e_sweep_plain
+            want = ransac.acransac_e_batch(None, x1, x2, mask, la, me,
+                                           iters=iters, idx=idx)
+        finally:
+            ransac.e_sweep = kernel_sweep
+        union = (got.inliers | want.inliers).sum(-1).clamp_min(1)
+        near.append(1.0 - (got.inliers & want.inliers).sum(-1) / union
+                    <= 0.05)
+        if scores is None:
+            scores = (x1, x2, mask, idx, x1_moved)
+    near = float(torch.cat(near).float().mean())
+    check(near >= 0.99, f"acransac_e_batch: the kernel's inlier sets lie "
+          f"within 0.05 of the plain version's on {near:.4f} of pairs")
+    x1, x2, mask, idx, x1_moved = scores
+    run = lambda: ransac.e_sweep(x1, x2, mask, me, idx)
+    plain = lambda: ransac.e_sweep_plain(x1, x2, mask, me, idx)
+    (Mk, okk), (Mp, okp) = run(), plain()
+    torch.cuda.synchronize()
+    err = torch.minimum((Mk - Mp).abs().amax((1, 2)),
+                        (Mk + Mp).abs().amax((1, 2)))
+    score = lambda M: torch.minimum(torch.where(mask, ransac._epi_resid(
+        M[:, None], {"x1": x1, "x2": x2})[:, 0], ransac._BIG),
+        me[:, None]).sum(-1)
+    rel = lambda M: (score(M) - score(Mp)).abs() / score(Mp)
+    rel_k = float(rel(Mk).max())
+    rel_n = float(rel(ransac.e_sweep_plain(x1_moved, x2, mask, me,
+                                           idx)[0]).max())
+    check(torch.equal(okk, okp), "E sweep: ok differs from the plain sweep's")
+    check(rel_k <= max(4 * rel_n, 1e-3),
+          f"E sweep: the winners' scores {rel_k:.3e} off the plain sweep's, "
+          f"rounding alone moves them {rel_n:.3e}")
+    # every candidate of every draw: the kernel's solver against the plain
+    sel = lambda a: torch.gather(a, 1, idx.reshape(P, -1, 1).expand(
+        P, iters * 5, 2)).reshape(P * iters, 5, 2)
+    Ek, ok_k = ransac.essential_5pt(sel(x1), sel(x2))
+    Ep, ok_p = geometry.fit_essential_5pt(sel(x1), sel(x2))
+    Ek, Ep = Ek.reshape(-1, 10, 1, 9), Ep.reshape(-1, 1, 10, 9)
+    d = torch.minimum((Ek - Ep).abs().amax(-1), (Ek + Ep).abs().amax(-1))
+    d = torch.where(ok_k[:, :, None], d, math.inf).amin(1)[ok_p]
+    q50, q99 = torch.quantile(d[torch.isfinite(d)].float()[:1 << 24],
+                              torch.tensor([0.5, 0.99], device="cuda")).tolist()
+    within = float((d < 1e-2).float().mean())
+    ok_agree = float((ok_k == ok_p).float().mean())
+    check(within >= 0.9 and ok_agree >= 0.95,
+          f"E solve: {within:.4f} of the plain candidates found within 1e-2 "
+          f"(want 0.9), ok agrees on {ok_agree:.4f} (want 0.95)")
+    ms = cuda_ms(run, reps=10)
+    plain_ms = cuda_ms(plain, reps=1, warmup=0)
+    c_call = e_c_call(x1, x2, mask, me, idx)
+    check(c_call() == 0, "the E sweep's C call failed")
+    flops = P * iters * (E_SOLVE_FLOP + 10 * cap * E_SCORE_FLOP)
+    row = {
+        "name": "e_sweep_f32", "route": "cuda",
+        "source": "regard3d_tpu_torch/csrc/essential5.cu",
+        "replaces": E_REPLACES, "launches": None,
+        "max_abs_err": float(err.max()), "max_score_rel": rel_k,
+        "max_score_rel_rounding": rel_n, "rival_err": rival_k,
+        "rival_err_plain": rival_p, "inlier_sets_near": near,
+        "cand_ok_agree": ok_agree,
+        "cand_err": {"q50": q50, "q99": q99, "max": float(d.max()),
+                     "within_1e-3": float((d < 1e-3).float().mean()),
+                     "within_1e-2": within},
+        "ms": ms, "call_ms": cuda_ms(c_call, reps=10), "plain_ms": plain_ms,
+        "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
+        "library_ms": None, "shape": {**E_SHAPE, "dtype": "float32"},
+        "tflops": flops / (ms * 1e-3) / 1e12,
+    }
+    row["regs"], row["spills"] = row_usage(usage, "e_sweep_f32")
+    log(f"(c) e_sweep_f32 (P={P} cap={cap} iters={iters}): {ms:.4f} ms, C "
+        f"call {row['call_ms']:.4f} ms (plain {plain_ms:.1f} ms, bound "
+        f"{row['bound_ms']:.4f} ms, {row['tflops']:.2f} TFLOP/s); selected "
+        f"model err {row['max_abs_err']:.3e}, score {rel_k:.2e} (rounding "
+        f"alone {rel_n:.2e}); constructed winners {rival_k:.2e} above the "
+        f"true E (plain {rival_p:.2e}); inlier sets near on {near:.4f}; candidates "
+        f"{json.dumps(row['cand_err'])}, ok agree "
+        f"{row['cand_ok_agree']:.4f}; {row['regs']} registers, "
+        f"{row['spills']} spilled bytes")
+    return row
 
 
 def phase_ties(desc, mask):
@@ -2243,6 +2530,7 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     pairs = pairs + [pairs[-1]] * ((-len(pairs)) % PAIR_BLOCK)
     parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
     rows = phase_kernels(descs.data, descs.mask, parr, usage)
+    rows.append(phase_e_sweep(usage))
     phase_ties(descs.data, descs.mask)
     phase_wide(descs.data, descs.mask, parr)
     stamp("(c)")

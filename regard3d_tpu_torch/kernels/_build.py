@@ -104,7 +104,8 @@ def build(source: str) -> str:
 
 def short_name(mangled: str) -> str:
     """``l2_top2_wgmma_kernel<0,144,4>`` for the mangled name of a kernel
-    (template arguments are integers); the mangled name if it names no
+    (template arguments integers, or one of float / double:
+    ``e_sweep_kernel<float>``); the mangled name if it names no
     ``*_kernel``. Of the length-prefixed names that end in ``_kernel`` the
     last one is the kernel's (a hash's digits can spell a longer one)."""
     best = None
@@ -118,8 +119,11 @@ def short_name(mangled: str) -> str:
     if best is None:
         return mangled
     end, name = best
-    args = re.match(r"I((?:Li-?\d+E)+)E", mangled[end + len(name):])
+    rest = mangled[end + len(name):]
+    args = re.match(r"I((?:Li-?\d+E)+)E", rest)
     args = re.findall(r"Li(-?\d+)E", args[1]) if args else []
+    if not args and re.match(r"I[fd]E", rest):     # one float type argument
+        args = ["float" if rest[1] == "f" else "double"]
     return name + (f"<{','.join(args)}>" if args else "")
 
 

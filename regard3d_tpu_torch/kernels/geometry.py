@@ -397,6 +397,14 @@ def lu_solve(A, B):
     return M[:, :, n:] / den
 
 
+def dk_start(D: int, dev) -> torch.Tensor:
+    """Durand-Kerner's start before scaling: (0.4 + 0.9i)^(k + 1), k < D,
+    complex64 on ``dev``."""
+    k = torch.arange(D, device=dev)
+    return torch.tensor(0.4 + 0.9j, dtype=torch.complex64, device=dev) \
+        ** (k + 1)
+
+
 def poly_roots(coeffs, iters: int = 60):
     """All complex roots of polynomials by Durand–Kerner iteration.
     coeffs: (S, D+1) ASCENDING, real or complex. Returns (S, D) complex64."""
@@ -409,10 +417,7 @@ def poly_roots(coeffs, iters: int = 60):
     lead = torch.where(lead.abs() > 1e-25, lead, tiny)
     c = coeffs / lead                                   # monic
     bound = 1.0 + torch.amax(c[:, :-1].abs(), dim=1, keepdim=True)
-    k = torch.arange(D, device=dev)
-    init = torch.tensor(0.4 + 0.9j, dtype=torch.complex64,
-                        device=dev) ** (k + 1)
-    z = init[None, :] * bound.to(torch.complex64)
+    z = dk_start(D, dev)[None, :] * bound.to(torch.complex64)
     eye = torch.eye(D, dtype=torch.bool, device=dev)
     one = torch.ones((), dtype=torch.complex64, device=dev)
     for _ in range(iters):

@@ -310,3 +310,53 @@ def test_unported_options_raise(tmp_path):
                                   np.zeros(0), np.zeros((1, 9)),
                                   np.zeros(1), tts.TriangulationParams(**kw),
                                   device="cpu")
+
+
+def test_maxpair_pose_explains_its_inliers(monkeypatch):
+    """MaxPair counts the inliers its decomposed pose explains, not those of
+    the sweep's matrix: the winning pair's E, swapped for one whose pose is
+    3 degrees off (still in front of both cameras, as a float32 5-point
+    candidate off the essential manifold decomposes), no longer wins with
+    that pose; whatever pair is picked, its pose explains every inlier it
+    returns within the bound."""
+    from regard3d_tpu_torch.core import cameras
+    from regard3d_tpu_torch.kernels import geometry, ransac
+    rng = np.random.default_rng(0)
+    scene = synth_scene(rng)
+    inputs, table = build_inputs(scene)
+    inputs = port_inputs(inputs)
+    cfg = tinc.IncrementalConfig(**CFG)
+    xn = tinc._normalized_xy(inputs, inputs.intr).numpy()
+    host = tinc._host_columns(inputs, inputs.intr)
+    ttable = _ttable(table)
+    pick = lambda: tinc._select_initial_pose(
+        inputs, ttable, tinc.default_provider(3), cfg, 8, xn, host)
+    with torch.no_grad():
+        i0, j0 = pick()[:2]
+    sweep = ransac.acransac_e_batch
+    # the winning pair's row in a block: its first observation
+    first = xn[tinc._pair_obs(host["vid"], host["tid"], i0, j0)[0][0]]
+
+    def twisted(*a, **kw):
+        re = sweep(*a, **kw)
+        x1, x2 = a[1], a[2]
+        rows = [b for b in range(len(x1))
+                if np.array_equal(x1[b, 0].numpy(), first)]
+        R, t, _ = geometry.decompose_essential(re.model, x1, x2,
+                                               mask=re.inliers)
+        dR = cameras.exp_so3(torch.tensor([0.0, np.radians(3.0), 0.0]))
+        model = re.model.clone()
+        for b in rows:
+            model[b] = cameras.hat(t[b]) @ dR.to(R.dtype) @ R[b]
+        return re._replace(model=model)
+
+    monkeypatch.setattr(ransac, "acransac_e_batch", twisted)
+    with torch.no_grad():
+        i, j, R, t, oi, oj, inl = pick()
+    assert inl.sum() >= cfg.min_initial_inliers
+    E = cameras.hat(torch.as_tensor(t)) @ torch.as_tensor(R)
+    r = ransac._epi_resid(E[None, None].float(), {
+        "x1": torch.as_tensor(xn[oi][inl])[None],
+        "x2": torch.as_tensor(xn[oj][inl])[None]})[0, 0]
+    f = float(host["intr"][host["iid"][i], 0])
+    assert (r <= (cfg.max_err_px / f) ** 2 * (1 + 1e-5)).all()

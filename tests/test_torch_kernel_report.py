@@ -38,8 +38,13 @@ MERGE = NS + "19merge_splits_kernelEPKfixPfPiS2_"
     ("_ZN38_GLOBAL__N__a2b7e140_8_f32v1_cu_3c5d19aa18l2_top2_f32_kernelEv",
      "l2_top2_f32_kernel"),
     ("_Z3foov", "_Z3foov"),
+    # the E sweep's instances: one floating-point type argument
+    ("_ZN2e514e_sweep_kernelIfEEvPKT_S3_PKbS3_PKxiiS3_PKfNS_4WorkIS1_EE",
+     "e_sweep_kernel<float>"),
+    ("_ZN2e515e_select_kernelIdEEvNS_4WorkIT_EEiPS2_Pb",
+     "e_select_kernel<double>"),
 ], ids=["wgmma", "mma", "f32", "merge", "glued_digits", "hash_digits",
-        "no_kernel"])
+        "no_kernel", "float_arg", "double_arg"])
 def test_short_name(mangled, want):
     assert _build.short_name(mangled) == want
 

@@ -27,7 +27,9 @@ from regard3d_tpu_torch.ba import lm as tlm
 from regard3d_tpu_torch.ba import sharded as tsh
 from regard3d_tpu_torch.core.types import Scene
 from regard3d_tpu_torch.export import formats as tfmt
+from regard3d_tpu_torch.kernels import geometry as tgeo
 from regard3d_tpu_torch.kernels import match as tm
+from regard3d_tpu_torch.kernels import ransac as tr
 from regard3d_tpu_torch.mvs import driver as tdrv
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
 from regard3d_tpu_torch.pipeline import features as tfeat
@@ -277,6 +279,68 @@ def test_kernel_wrappers_never_fall_back(rng):
     d1, i1, d2 = tm.l2_top2_block(desc, torch.ones((2, 32), dtype=bool),
                                   pairs)
     assert tm.LAUNCHES == before and d1.shape == (1, 32)
+
+
+def _e_inputs(rng, P=2, n=24, iters=8, dtype=torch.float32):
+    x1, x2 = (torch.tensor(rng.normal(size=(P, n, 2)) * 0.3, dtype=dtype)
+              for _ in range(2))
+    mask = torch.ones((P, n), dtype=bool)
+    me = torch.full((P,), 1e-4, dtype=dtype)
+    idx = torch.stack([tr._draw_samples(torch.Generator().manual_seed(p),
+                                        mask[p], iters, 5)
+                       for p in range(P)])
+    return x1, x2, mask, me, idx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_e_sweep_wrappers_take_the_plain_sweep_on_the_cpu(rng, dtype):
+    """The E-sweep wrappers on CPU tensors return the plain versions'
+    numbers and launch nothing."""
+    x1, x2, mask, me, idx = _e_inputs(rng, dtype=dtype)
+    before = dict(tr.LAUNCHES)
+    got = tr.e_sweep(x1, x2, mask, me, idx)
+    want = tr.e_sweep_plain(x1, x2, mask, me, idx)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].dtype == dtype and got[1].shape == (2,)
+    s1 = _gather(x1, idx)
+    s2 = _gather(x2, idx)
+    E, ok = tr.essential_5pt(s1, s2)
+    Ep, okp = tgeo.fit_essential_5pt(s1, s2)
+    assert torch.equal(E, Ep) and torch.equal(ok, okp)
+    assert tr.LAUNCHES == before
+
+
+def _gather(x, idx):
+    P, D, s = idx.shape
+    return torch.gather(x, 1, idx.reshape(P, D * s, 1).expand(
+        P, D * s, 2)).reshape(P * D, s, 2)
+
+
+@pytest.mark.parametrize("case", ["cpu", "dtype", "layout", "shape",
+                                  "index_dtype"])
+def test_e_sweep_launch_refuses_what_it_cannot_take(rng, case):
+    """The E-sweep launch path raises ValueError on CPU tensors, on points
+    that are neither float32 nor float64, on non-contiguous tensors, on
+    shapes that do not fit together and on draws that are not int64; so
+    does the solver's."""
+    x1, x2, mask, me, idx = _e_inputs(rng)
+    if case == "dtype":
+        x1, x2, me = x1.half(), x2.half(), me.half()
+    elif case == "layout":
+        x1 = x1.transpose(0, 1).contiguous().transpose(0, 1)
+    elif case == "shape":
+        idx = idx[:, :, :4].contiguous()
+    elif case == "index_dtype":
+        idx = idx.int()
+    want = {"cpu": "CUDA", "dtype": "float32 or float64",
+            "layout": "contiguous", "shape": "shapes",
+            "index_dtype": "int64"}[case]
+    with pytest.raises(ValueError, match=want):
+        tr._e_sweep_launch(x1, x2, mask, me, idx)
+    if case in ("cpu", "dtype"):
+        s = _gather(x1, idx)
+        with pytest.raises(ValueError, match=want):
+            tr._check_on_card(x1=s, x2=s)
 
 
 def test_runtime_numerics_and_build_dir():
