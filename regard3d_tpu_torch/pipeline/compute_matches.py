@@ -216,6 +216,7 @@ def _match_block(desc, mask, parr, cfg: MatchConfig, bf16: bool):
     matcher, which rounds the product's operands itself."""
     idx, _, ok = match_mod.match_pair_block(desc, mask, parr, cfg.ratio,
                                             True, bf16=bf16)
+    spans.count("launches", 2 if cfg.mutual else 1)
     if cfg.mutual:
         rev = parr.flip(-1)
         idx_b, _, ok_b = match_mod.match_pair_block(desc, mask, rev,
@@ -233,7 +234,11 @@ def match_all_pairs(kps, descs, cfg: MatchConfig,
     kps/descs: padded (B, N, ...) tensors from ``features.load_all_padded``
     on the stage's device; one matcher call per block of 64 pairs. With
     ``mesh``, blocks of 64 x its size, each split into blocks of 64 that go
-    to its devices in turn (descriptors copied to each device once)."""
+    to its devices in turn (descriptors copied to each device once).
+    Spans (under the caller's): ``.readback`` (the host waiting on a
+    block's results) and ``.unpack`` (the per-pair arrays built from
+    them), once a block; counter ``launches`` (matcher calls, pad-filled
+    blocks included) on the caller's span."""
     B = descs.data.shape[0]
     if pairs is None:
         pairs = exhaustive_pairs(B)
@@ -250,15 +255,18 @@ def match_all_pairs(kps, descs, cfg: MatchConfig,
         parts = [_match_block(*on[d], torch.as_tensor(np.asarray(
             chunk[k * PAIR_BLOCK:(k + 1) * PAIR_BLOCK], np.int32)), cfg,
             bf16) for k, d in enumerate(devs)]
-        idx_np = np.concatenate([idx.cpu().numpy() for idx, _ in parts])
-        ok_np = np.concatenate([ok.cpu().numpy() for _, ok in parts])
-        for bi, (i, j) in enumerate(chunk):
-            if start + bi >= total:
-                break
-            ia = np.where(ok_np[bi])[0]
-            out[(i, j)] = np.stack([ia, idx_np[bi][ia]], -1).astype(np.int64)
-            if progress:
-                progress(min(start + bi + 1, total), total)
+        with spans.span(".readback"):
+            idx_np = np.concatenate([idx.cpu().numpy() for idx, _ in parts])
+            ok_np = np.concatenate([ok.cpu().numpy() for _, ok in parts])
+        with spans.span(".unpack"):
+            for bi, (i, j) in enumerate(chunk):
+                if start + bi >= total:
+                    break
+                ia = np.where(ok_np[bi])[0]
+                out[(i, j)] = np.stack([ia, idx_np[bi][ia]],
+                                       -1).astype(np.int64)
+                if progress:
+                    progress(min(start + bi + 1, total), total)
     return out
 
 

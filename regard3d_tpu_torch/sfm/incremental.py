@@ -20,7 +20,8 @@ The which-view-next loop stays on the host; every step inside it runs on
 the engine's device. Each phase opens a ``torch.profiler`` span
 (``triangulation.init``, ``.resection``, ``.triangulation``, ``.ba``,
 ``.outlier``) that ends in a device synchronize, so a trace attributes every
-device operation to its phase; ``stats["profile"]`` holds the same keys as
+device operation to its phase; ``.resection`` counts the views of each
+group it tries (``views``); ``stats["profile"]`` holds the same keys as
 the reference's.
 
 Random draws: the reference draws its initializer and resection samples
@@ -842,7 +843,7 @@ def run_incremental(inputs: SfMInputs,
             idx = draws("resection", maskv, cfg.resection_iters, 3)
         prof["host_s"] += sp.seconds
 
-        with spans.span("triangulation.resection") as sp, \
+        with spans.span("triangulation.resection", views=P) as sp, \
                 torch.no_grad():
             t = lambda a: torch.as_tensor(a, device=dev)
             rr = ransac.acransac_resection_batch(

@@ -14,6 +14,13 @@
   each starting within 0.5 ms;
 * ``add_to_trace`` appends the spans to a profiler trace in place, or
   beside it where the file is laid out another way;
+* ``match_all_pairs`` over several blocks of 64 pairs (12 random-descriptor
+  views: 66 pairs, 2 blocks, 62 pad slots) equals the benchmark
+  reference's exact ratio test on every pair whatever the pairs' order,
+  counts one ``launches`` a matcher call and opens one ``.readback`` and
+  one ``.unpack`` span a block;
+* the benchmark's readers of those spans and of resection's ``views``
+  counter give the hand-computed values, and None on steps without them;
 * ``spans.py`` is the one module of the port that imports
   ``record_function``, and the step drivers keep no timers of their own.
 """
@@ -28,8 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+from benchmark import run as bench_run
+from benchmark.reference import matches_ref
 from regard3d_tpu_torch import spans
-from regard3d_tpu_torch.core.types import PINHOLE
+from regard3d_tpu_torch.core.types import PINHOLE, Descriptors
 from regard3d_tpu_torch.dist import mesh as meshlib
 from regard3d_tpu_torch.ingest import synth
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
@@ -55,7 +64,9 @@ MATCH_SPANS = {
     "compute_matches.features.write": (),
     "compute_matches.matching": (),
     "compute_matches.matching.load": (),
-    "compute_matches.matching.match": (),
+    "compute_matches.matching.match": ("launches",),
+    "compute_matches.matching.match.readback": (),
+    "compute_matches.matching.match.unpack": (),
     "compute_matches.filter": ("pairs",),
     "compute_matches.filter.block": (),
     **{f"compute_matches.filter.block.{k}": () for k in (
@@ -72,7 +83,7 @@ SFM_SPANS = {
     "triangulation.init": (),
     "triangulation.triangulation": (),
     "triangulation.select": (),
-    "triangulation.resection": (),
+    "triangulation.resection": ("views",),
     "triangulation.ba": (),
     "triangulation.ba.trial": (),
     "triangulation.ba.cost": (),
@@ -167,6 +178,10 @@ def test_steps_return_every_span_counter_and_stats_key(tmp_path):
     assert sp["compute_matches.filter.block.draws"]["n"] == sum(
         sp[f"compute_matches.filter.block.{k}"]["n"] for k in "feh")
     assert sp["compute_matches.filter"]["pairs"] == 6
+    # 6 pairs: one matcher block, read back and unpacked once
+    assert sp["compute_matches.matching.match"]["launches"] == 1
+    assert sp["compute_matches.matching.match.readback"]["n"] == 1
+    assert sp["compute_matches.matching.match.unpack"]["n"] == 1
 
     intr = np.zeros((1, 9), np.float32)
     intr[0, :3] = [f, 128.0, 128.0]
@@ -288,3 +303,130 @@ def test_add_to_trace_appends_in_place(tmp_path, events, tail):
     tid = spans.HOST_SPANS_TID
     assert got == [("a", 2.0, 3.0, tid), ("b", 0.0, 0.5, tid + 1),
                    ("a.b", 3.0, 1.0, tid)]
+
+
+def _random_views(n_views, seed=0):
+    """Padded descriptors of ``n_views`` views of 96-160 rows each: rows
+    drawn from a pool of 240 random descriptors, a few entries of each moved
+    by one step, so that pairs share true matches. Entries lie on a grid of
+    1/16, so every distance is exact in float32 (the program and the
+    reference then decide alike, ties included)."""
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(1, 15, (240, 144))
+    counts = rng.integers(96, 161, n_views)
+    data = np.zeros((n_views, 256, tcm.MATCH_DIM), np.float32)
+    mask = np.zeros((n_views, 256), bool)
+    for v, c in enumerate(counts):
+        rows = pool[rng.choice(len(pool), c, replace=False)]
+        rows = rows + rng.integers(-1, 2, rows.shape) * (
+            rng.random(rows.shape) < 0.2)
+        data[v, :c, :144] = rows / 16.0
+        mask[v, :c] = True
+    return Descriptors(data=torch.as_tensor(data),
+                       mask=torch.as_tensor(mask)), counts
+
+
+def test_match_all_pairs_over_blocks_equals_the_exact_ratio_test():
+    descs, counts = _random_views(12)
+    cfg = tcm.MatchConfig()
+    pairs = tcm.exhaustive_pairs(12)
+    assert len(pairs) == 66           # two blocks of 64, 62 pad slots
+    got = tcm.match_all_pairs(None, descs, cfg)
+    order = np.random.default_rng(1).permutation(len(pairs))
+    shuffled = tcm.match_all_pairs(None, descs, cfg,
+                                   pairs=[pairs[k] for k in order])
+    assert set(got) == set(shuffled) == set(pairs)
+    for i, j in pairs:
+        want = matches_ref.ratio_match(descs.data[i, :counts[i], :144],
+                                       descs.data[j, :counts[j], :144],
+                                       cfg.ratio)
+        assert len(want) > 0
+        np.testing.assert_array_equal(got[(i, j)], want)
+        np.testing.assert_array_equal(shuffled[(i, j)], want)
+
+
+@pytest.mark.parametrize("n_pairs", [1, 64, 66, 129])
+def test_match_all_pairs_counts_launches_and_spans_a_block(n_pairs):
+    descs, _ = _random_views(17, seed=n_pairs)
+    pairs = tcm.exhaustive_pairs(17)[:n_pairs]
+    with spans.collect() as col:
+        with spans.span("m"):
+            out = tcm.match_all_pairs(None, descs, tcm.MatchConfig(),
+                                      pairs=pairs)
+    summary = col.summary()
+    blocks = -(-n_pairs // tcm.PAIR_BLOCK)
+    assert len(out) == n_pairs
+    assert summary["m"]["launches"] == blocks
+    assert summary["m.readback"]["n"] == summary["m.unpack"]["n"] == blocks
+
+
+def test_resection_counts_the_views_of_every_group_tried(monkeypatch):
+    """On a small scene resected in groups of at most two views, the
+    ``views`` counter of ``triangulation.resection`` is the sum of the
+    groups handed to the batched resection, one group a round."""
+    from regard3d_tpu_torch.kernels import ransac
+    from tests.test_incremental import build_inputs, synth_scene
+    from tests.test_torch_incremental import port_inputs
+    sizes = []
+    batch = ransac.acransac_resection_batch
+
+    def record(*a, **kw):
+        sizes.append(int(a[1].shape[0]))
+        return batch(*a, **kw)
+
+    monkeypatch.setattr(ransac, "acransac_resection_batch", record)
+    inputs, _ = build_inputs(synth_scene(np.random.default_rng(0)))
+    cfg = tinc.IncrementalConfig(ransac_iters=256, resection_iters=128,
+                                 resection_group=2, ba_iterations=5,
+                                 final_ba_iterations=5)
+    with spans.collect() as col:
+        res = tinc.run_incremental(port_inputs(inputs), cfg=cfg, seed=3,
+                                   device="cpu")
+    prof = res.stats["profile"]
+    row = col.summary()["triangulation.resection"]
+    assert res.stats["num_cameras"] == 8
+    assert prof["resection_rounds"] == len(sizes) == row["n"] >= 3
+    assert row["views"] == sum(sizes) >= 6
+    assert prof["ba_rounds"] >= 3         # BA between the rounds too
+
+
+def _read(name, steps):
+    return bench_run.load_module("metrics", name).read(
+        {"steps": steps, "profiled": None, "work": {}, "records": []})
+
+
+def _row(s, **counters):
+    return {"n": 2, "s": s, "self_s": s, **counters}
+
+
+def test_readers_of_the_matching_spans_and_resection_views():
+    steps = [{"spans": {
+        "compute_matches.matching.match": _row(0.5, launches=3),
+        "compute_matches.matching.match.readback": _row(0.25),
+        "compute_matches.matching.match.unpack": _row(0.0625)}},
+        {"spans": {
+            "compute_matches.matching.match": _row(0.5, launches=3),
+            "compute_matches.matching.match.readback": _row(0.75),
+            "compute_matches.matching.match.unpack": _row(0.1875)}}]
+    assert _read("matching_wait_s", steps) == pytest.approx(0.5)
+    assert _read("matching_unpack_s", steps) == pytest.approx(0.125)
+    steps = [{"profile": {"resection_s": 0.25},
+              "spans": {"triangulation.resection": _row(0.25, views=10)}},
+             {"profile": {"resection_s": 0.75},
+              "spans": {"triangulation.resection": _row(0.75, views=10)}}]
+    assert _read("resection_ms_per_view", steps) == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("name,step", [
+    ("matching_wait_s", {"time_matching_s": 1.0}),
+    ("matching_unpack_s", {"time_matching_s": 1.0,
+                           "spans": {"compute_matches.matching.match":
+                                     _row(0.5)}}),
+    ("resection_ms_per_view", {"profile": {"resection_s": 1.0}}),
+    ("resection_ms_per_view", {"profile": {"resection_s": 1.0}, "spans": {
+        "triangulation.resection": _row(1.0)}}),
+])
+def test_readers_give_none_without_their_span(name, step):
+    """A program without the spans (the stats of a step before they were
+    added) reads None, never an error."""
+    assert _read(name, [step, step]) is None
