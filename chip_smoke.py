@@ -17,7 +17,8 @@ run if it fails:
     ranks each dtype's FULL kernel can hold at once
     (``cudaOccupancyMaxActiveClusters``) and fail unless its 4000-row
     call's clusters fit in one wave; print the E-sweep kernels' registers,
-    spills and local memory (``csrc/essential5.cu``);
+    spills and local memory (``csrc/essential5.cu``) and the Schur PCG
+    kernel's (``csrc/schur_pcg.cu``);
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
@@ -58,7 +59,13 @@ run if it fails:
     to a rounding yardstick, ``acransac_e_batch``'s inlier sets, every
     draw's candidates through the kernel's solver, the kernel's time
     through the wrapper and as its C call, the plain version's, and its
-    FP32 bound;
+    FP32 bound; the Schur PCG kernel of BA at the synthetic-11.sfm cell's
+    shapes (11 cameras, 4482 points, 17,928 observations, one intrinsic
+    group refined, 40 CG steps) against ``lm._solve_schur``: within 1e-4
+    where the CG converges (lam = 1), within four times the plain solve's
+    own spread between its table forms through 40 unconverged steps,
+    the same bits twice, its time through the wrapper, as its C call and
+    at 0 CG steps, the plain solve's and its bound;
 (e) where the time goes: the stage again on its first 4 views (6 pairs),
     warm, once on the host clock and once under ``torch.profiler``; per
     phase (the stage's own profiler
@@ -76,8 +83,9 @@ run if it fails:
     are posed, the ATE after Sim3 alignment against the true centers is <=
     0.08, the median residual < 1 px, ``scene.npz`` loads back,
     ``sfm_data.json`` holds 11 extrinsics and one structure entry per live
-    track, both PLYs read back, and two ``bundle_adjust`` calls on the final
-    state give bit-identical states. The run is under ``torch.profiler``:
+    track, both PLYs read back, two ``bundle_adjust`` calls on the final
+    state give bit-identical states, and BA's solve went through the
+    Schur PCG kernel. The run is under ``torch.profiler``:
     per engine span (``triangulation.<phase>``) the host time, the device's
     busy time and idle share and the number of device operations. One
     ``sfm`` JSON line;
@@ -323,21 +331,24 @@ def phase_build():
     from regard3d_tpu_torch import native
     from regard3d_tpu_torch.kernels import _build
     from regard3d_tpu_torch.kernels import match as match_mod
-    from regard3d_tpu_torch.kernels import ransac
+    from regard3d_tpu_torch.kernels import ransac, schur_pcg
     from regard3d_tpu_torch.tools import kernel_report
     t0 = time.time()
     # nvcc and g++ side by side: the matcher's kernels, the E sweep's and
     # (m)'s host library (built here, so no CLI process of (j) builds
     # anything)
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         host = pool.submit(native.build)
         e_lib = pool.submit(_build.build, ransac._E_SOURCE)
+        s_lib = pool.submit(_build.build, schur_pcg._SOURCE)
         lib = _build.build(match_mod._SOURCE)
         log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
         log(f"(a) built {os.path.basename(host.result())} from "
             f"{os.path.relpath(native.SOURCE)} in {time.time() - t0:.1f} s")
         e_lib = e_lib.result()
         log(f"(a) built {ransac._E_SOURCE} in {time.time() - t0:.1f} s")
+        s_lib = s_lib.result()
+        log(f"(a) built {schur_pcg._SOURCE} in {time.time() - t0:.1f} s")
     usage = _build.ptxas_usage(_build.build_log(lib))
     for name, ops in sorted(_build.sass_opcodes(lib).items()):
         log(f"(a) {name}: {usage.get(name)}; SASS "
@@ -357,6 +368,12 @@ def phase_build():
         check(e_usage.get(name, {}).get("registers", 0) > 0,
               f"ptxas reported no {name}")
     usage.update(e_usage)
+    s_usage = _build.ptxas_usage(_build.build_log(s_lib))
+    for name in S_KERNELS:
+        log(f"(a) {name}: {s_usage.get(name)}")
+        check(s_usage.get(name, {}).get("registers", 0) > 0,
+              f"ptxas reported no {name}")
+    usage.update(s_usage)
     for name in ("l2_top2_f32_kernel", "l2_top2_wgmma_kernel<0,144,4>",
                  "l2_top2_prep_kernel"):
         u = usage.get(name, {})
@@ -527,12 +544,12 @@ def _close(name, a, b, rtol, atol):
 
 # which path's run each row's launch count comes from: the stage's default
 # f32 run, the stage's matching under the flann (bf16) preset, the matcher
-# profile; the single-pair call lies on none of them
+# profile, (g)'s triangulation; the single-pair call lies on none of them
 ROW_PATH = {"l2_top2_block_f32": "stage", "l2_top2_block_bf16": "flann",
             "l2_top2_f32": "stage", "l2_top2_bf16": "stage",
             "l2_top2_block_mm_only_bf16": "profile",
             "l2_top2_block_min_only_bf16": "profile",
-            "e_sweep_f32": "stage"}
+            "e_sweep_f32": "stage", "schur_pcg_f32": "sfm"}
 K1 = "regard3d_tpu/kernels/match.py:246"
 K2 = "regard3d_tpu/kernels/match.py:151"
 K3 = "tools/profile_matcher.py:86"
@@ -546,6 +563,18 @@ E_SOLVE_FLOP, E_SCORE_FLOP = 1.69e5, 24
 E_KERNELS = ("e_sweep_kernel<float>", "e_select_kernel<float>",
              "e_solve_kernel<float>", "e_sweep_kernel<double>",
              "e_select_kernel<double>", "e_solve_kernel<double>")
+S_KERNELS = ("schur_pcg_kernel<float>", "schur_pcg_kernel<double>")
+S_REPLACES = ("none: the reference's CG was XLA's compiled lax.while_loop, "
+              "regard3d_tpu/ba/lm.py:345")
+# (c) the Schur PCG solve at the synthetic-11.sfm cell's BA shapes: 11
+# cameras, 4482 points seen 4 times each (17,928 observations), one
+# intrinsic group, 40 CG steps. Its bound (csrc/schur_pcg.cu's note): per
+# step, three grid barriers at 1.1 us each (a barrier's time on an H100
+# 80GB HBM3 at this grid, read from globaltimer stamps in block 0) plus
+# the bytes one pass over the observations reads (A, B, Ji, w, three int64
+# ids: 172 a row in float32) at the HBM rate, though they stay in L2
+S_SHAPE = {"V": 11, "L": 4482, "per_point": 4, "K": 1, "cg_iterations": 40}
+S_BARRIERS, S_BARRIER_S, S_ROW_BYTES = 3, 1.1e-6, 172
 
 
 def host_us(fn, reps: int = 50) -> float:
@@ -592,7 +621,8 @@ ROW_KERNEL = {"l2_top2_block_f32": "l2_top2_f32_kernel",
               "l2_top2_bf16": "l2_top2_wgmma_kernel<0,144,",
               "l2_top2_block_mm_only_bf16": "l2_top2_wgmma_kernel<1,144,",
               "l2_top2_block_min_only_bf16": "l2_top2_wgmma_kernel<2,144,",
-              "e_sweep_f32": "e_sweep_kernel<float>"}
+              "e_sweep_f32": "e_sweep_kernel<float>",
+              "schur_pcg_f32": "schur_pcg_kernel<float>"}
 
 
 def row_usage(usage, name):
@@ -1059,6 +1089,150 @@ def phase_e_sweep(usage):
         f"{json.dumps(row['cand_err'])}, ok agree "
         f"{row['cand_ok_agree']:.4f}; {row['regs']} registers, "
         f"{row['spills']} spilled bytes")
+    return row
+
+
+def s_problem(seed=0, device="cuda"):
+    """A BA problem at S_SHAPE: cameras on an arc of 1 rad around a
+    cloud, each point seen by ``per_point`` cameras drawn at random, rows
+    shuffled, radial-K3 with 0.5 px of noise; the state perturbed (poses,
+    points, focal 2% off, distortion zeroed). Returns (state, obs, fixed:
+    camera 0) on ``device``."""
+    from regard3d_tpu_torch.ba import lm
+    from regard3d_tpu_torch.core import cameras
+    from regard3d_tpu_torch.core.types import RADIAL_K3
+    rng = np.random.default_rng(seed)
+    V, L, k = S_SHAPE["V"], S_SHAPE["L"], S_SHAPE["per_point"]
+    X = rng.normal(size=(L, 3)) * [2, 1.5, 1] + [0, 0, 10]
+    a = np.linspace(-0.5, 0.5, V)
+    # each camera looks at the cloud's centre
+    R = cameras.exp_so3(torch.tensor(np.stack([0 * a, -a, 0 * a], 1)))
+    C = np.stack([-10 * np.sin(a), 0.3 * rng.normal(size=V),
+                  10 - 10 * np.cos(a)], 1)
+    vid = np.concatenate([rng.choice(V, k, replace=False) for _ in range(L)])
+    pid = np.repeat(np.arange(L), k)
+    perm = rng.permutation(len(vid))
+    vid, pid = vid[perm], pid[perm]
+    intr = np.array([[2662.0, 1536.0, 1024.0, -0.05, 0.01, -0.002, 0, 0,
+                      0]])
+    O = len(vid)
+    uv, _ = cameras.project(R[vid], torch.tensor(C)[vid],
+                            torch.full((O,), RADIAL_K3),
+                            torch.tensor(intr)[np.zeros(O, int)],
+                            torch.tensor(X)[pid])
+    xy = uv.numpy() + rng.normal(size=(O, 2)) * 0.5
+    Rp = cameras.exp_so3(torch.tensor(rng.normal(size=(V, 3)) * 0.005)) @ R
+    Rp[0] = R[0]
+    Cp = C + rng.normal(size=C.shape) * 0.03
+    Cp[0] = C[0]
+    intr_p = intr.copy()
+    intr_p[0, 0] *= 1.02
+    intr_p[0, 3:] = 0.0
+    f = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.float32,
+                                  device=device)
+    i = lambda x: torch.as_tensor(np.asarray(x), dtype=torch.int64,
+                                  device=device)
+    state = lm.BAState(R=f(Rp), C=f(Cp), intr=f(intr_p),
+                       X=f(X + rng.normal(size=X.shape) * 0.05))
+    obs = lm.BAObservations(view_id=i(vid), intr_id=i(np.zeros(O)),
+                            point_id=i(pid), model=i(np.full(O, RADIAL_K3)),
+                            xy=f(xy), weight=f(np.ones(O)))
+    return state, obs, torch.as_tensor(np.arange(V) == 0, device=device)
+
+
+def phase_schur_pcg(usage):
+    """(c) the Schur PCG kernel (``csrc/schur_pcg.cu``) against the plain
+    solve (``lm._solve_schur``) on the card at S_SHAPE, intrinsics refined
+    (every segment sum runs). At lam = 1, where the CG converges and
+    carries no rounding far, (dc, dp, di) within 1e-4 of their largest
+    entries (the card tests' limit); at lam = 1e-4 through 40 steps the
+    largest absolute error of each, held to four times the plain
+    version's own spread between its padded and sorted tables (the card
+    tests' yardstick); the same bits in a second call; the CG steps the
+    kernel ran; at lam = 1e-4 the kernel's time through the wrapper and as
+    its C call alone (CUDA events), at 0 CG steps (the prologue,
+    right-hand side and back-substitution alone), the plain solve's, and
+    the bound (S_BARRIERS barriers and one pass of S_ROW_BYTES a row per
+    step run); registers and spills from (a)."""
+    from regard3d_tpu_torch.ba import lm
+    from regard3d_tpu_torch.kernels import schur_pcg
+    state, obs, fixed = s_problem()
+    opts = lm.BAOptions(cg_iterations=S_SHAPE["cg_iterations"],
+                        refine_intrinsics=True, huber_delta_px=4.0)
+    V, L, K = S_SHAPE["V"], S_SHAPE["L"], S_SHAPE["K"]
+    layout = lm.make_layout(obs, V, L, K)
+    nb = lm._normal_blocks(state, obs, opts, layout)
+    imask = lm.intr_mask_of(obs, K, True)
+    lam = 1e-4
+    steps = torch.zeros((), dtype=torch.int64, device="cuda")
+    before = schur_pcg.LAUNCHES["schur_pcg_f32"]
+    run = lambda st=None, lm_=lam: lm._solve_schur_kernel(
+        nb, obs, lm_, opts, fixed, imask, layout, st)
+    plain = lambda lay=layout, n=nb, lm_=lam: lm._solve_schur(
+        n, obs, lm_, state, opts, fixed, imask, lay)
+    rel = lambda got, want: [float((g - w).abs().max() / w.abs().max())
+                             for g, w in zip(got, want)]
+    rel_1 = rel(run(lm_=1.0), plain(lm_=1.0))
+    check(max(rel_1) <= 1e-4, f"Schur PCG at lam 1: (dc, dp, di) {rel_1} "
+          f"of their largest entries off the plain solve's")
+    got = run(steps)
+    check(schur_pcg.LAUNCHES["schur_pcg_f32"] == before + 2,
+          "the Schur PCG kernel was not launched once a call")
+    again = run()
+    want = plain()
+    sorted_layout = lm.make_layout(obs, V, L, K, max_pad_factor=0.0)
+    yard = max(rel(plain(sorted_layout, lm._normal_blocks(
+        state, obs, opts, sorted_layout)), want))
+    torch.cuda.synchronize()
+    n_steps = int(steps)
+    err = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    rel_k = rel(got, want)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    check(max(rel_k) <= 4 * yard, f"Schur PCG: (dc, dp, di) {rel_k} of "
+          f"their largest entries off the plain solve's, whose two table "
+          f"forms differ by {yard}")
+    check(same, "Schur PCG: two calls differ")
+    args = (nb.A.contiguous(), nb.B.contiguous(), nb.Ji.contiguous(), nb.w,
+            nb.U, nb.Vl, nb.Ui, nb.gc, nb.gp, nb.gi, obs.view_id,
+            obs.intr_id, obs.point_id, fixed, imask, layout.cam, layout.pt,
+            layout.intr, lam, opts.cg_iterations, opts.cg_tol)
+    a, _, work = schur_pcg.launch_args(*args)
+    c_call = lambda: schur_pcg.c_call(a, torch.float32, nb.A.device)
+    check(c_call() == 0, "the Schur PCG C call failed")
+    a0, _, work0 = schur_pcg.launch_args(*args[:-2], 0, opts.cg_tol)
+    ms = cuda_ms(run, reps=20)
+    call = cuda_ms(c_call, reps=20)
+    call0 = cuda_ms(lambda: schur_pcg.c_call(a0, torch.float32,
+                                             nb.A.device), reps=20)
+    plain_ms = cuda_ms(plain, reps=3)
+    O = obs.view_id.shape[0]
+    bound_ms = n_steps * (S_BARRIERS * S_BARRIER_S
+                          + O * S_ROW_BYTES / PEAK_BYTES) * 1e3
+    row = {
+        "name": "schur_pcg_f32", "route": "cuda",
+        "source": "regard3d_tpu_torch/csrc/schur_pcg.cu",
+        "replaces": S_REPLACES, "launches": None,
+        "max_abs_err": max(err), "abs_err": dict(zip(("dc", "dp", "di"),
+                                                     err)),
+        "rel_err": dict(zip(("dc", "dp", "di"), rel_k)),
+        "rel_err_plain_tables": yard, "rel_err_lam_1": max(rel_1),
+        "repeat_same": same, "cg_steps": n_steps, "ms": ms,
+        "call_ms": call, "call_ms_0_steps": call0,
+        "ms_per_step": (call - call0) / max(n_steps, 1),
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "grid barriers (1.1 us each) + bytes at the HBM rate",
+        "library_ms": None,
+        "shape": {**S_SHAPE, "O": O, "lam": lam, "dtype": "float32"},
+    }
+    row["regs"], row["spills"] = row_usage(usage, "schur_pcg_f32")
+    log(f"(c) schur_pcg_f32 ({json.dumps(row['shape'])}): {ms:.4f} ms, C "
+        f"call {call:.4f} ms ({call0:.4f} ms at 0 steps; "
+        f"{row['ms_per_step'] * 1e3:.2f} us a step, {n_steps} steps), plain "
+        f"{plain_ms:.2f} ms, bound {bound_ms:.4f} ms; error {err} (of the "
+        f"largest entries {rel_k}; the plain tables' spread {yard}; at lam "
+        f"1 {max(rel_1)}); repeat the same bits {same}; {row['regs']} "
+        f"registers, {row['spills']} spilled bytes")
+    del work, work0
     return row
 
 
@@ -2531,6 +2705,7 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     parr = torch.as_tensor(np.asarray(pairs[:PAIR_BLOCK], np.int32))
     rows = phase_kernels(descs.data, descs.mask, parr, usage)
     rows.append(phase_e_sweep(usage))
+    rows.append(phase_schur_pcg(usage))
     phase_ties(descs.data, descs.mask)
     phase_wide(descs.data, descs.mask, parr)
     stamp("(c)")
@@ -2538,7 +2713,13 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     stamp("(e)")
     paths["profile"] = phase_matcher_profile(descs.data, descs.mask, parr)
     stamp("(f)")
+    from regard3d_tpu_torch.kernels import schur_pcg
+    s_before = schur_pcg.LAUNCHES["schur_pcg_f32"]
     g = phase_sfm(ds, out, work)
+    paths["sfm"] = {"schur_pcg_f32": schur_pcg.LAUNCHES["schur_pcg_f32"]
+                    - s_before}
+    check(paths["sfm"]["schur_pcg_f32"] > 0,
+          "the Schur PCG kernel was not launched on the sfm path")
     stamp("(g)")
     k1_ranks = phase_dist(ds, out, work, g)
     stamp("(n)")

@@ -20,6 +20,10 @@ Counterpart of ``regard3d_tpu/ba/lm.py`` (single device):
   residual stop (a ``while_loop``) becomes ``cg_iterations`` fixed steps
   whose state a device-side ``done`` flag freezes: the same result without a
   host synchronisation per step. Block inverses use ``inv_ex``.
+* On the card, with no shards, the whole solve is one launch of the kernel
+  of ``kernels/schur_pcg.py`` (``csrc/schur_pcg.cu``), which leaves the CG
+  loop at the step where this loop freezes; CPU tensors and the sharded
+  hooks take ``_solve_schur`` (``lm_trial``).
 * The LM outer loop runs on the host, with one ``float(cost)`` per trial.
 
 Gauge: ``fixed_pose_mask`` pins chosen cameras. A center prior
@@ -48,6 +52,7 @@ from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import cameras as cam
 from regard3d_tpu_torch.core.segments import (SegmentTable, make_table,
                                               segment_sum)
+from regard3d_tpu_torch.kernels import schur_pcg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -358,6 +363,29 @@ def _solve_schur(nb: _Normal, obs: BAObservations, lam, state,
     return xc, dp, xi
 
 
+def _pcg_on_card(x: torch.Tensor, cam_reduce: Reduce,
+                 point_reduce: Reduce) -> bool:
+    """Whether the solve is the kernel's: tensors on CUDA and no shards
+    (both hooks ``identity_reduce``). The sharded BA sums over the ranks
+    inside every CG step, which no single launch can do."""
+    return (x.is_cuda and cam_reduce is identity_reduce
+            and point_reduce is identity_reduce)
+
+
+def _solve_schur_kernel(nb: _Normal, obs: BAObservations, lam,
+                        opts: BAOptions, fixed_pose_mask, intr_dof_mask,
+                        layout: BALayout, steps=None):
+    """``_solve_schur`` (no shards) as one launch of the CUDA kernel;
+    ``steps``: an int64 scalar on the card the CG steps run are added
+    to."""
+    c = lambda t: t.contiguous()
+    return schur_pcg.schur_pcg(
+        c(nb.A), c(nb.B), c(nb.Ji), c(nb.w), c(nb.U), c(nb.Vl), c(nb.Ui),
+        c(nb.gc), c(nb.gp), c(nb.gi), c(obs.view_id), c(obs.intr_id),
+        c(obs.point_id), c(fixed_pose_mask), c(intr_dof_mask), layout.cam,
+        layout.pt, layout.intr, lam, opts.cg_iterations, opts.cg_tol, steps)
+
+
 def _apply_step(state: BAState, dc, dp, di) -> BAState:
     R = cam.exp_so3(dc[:, :3]) @ state.R
     C = state.C + dc[:, 3:]
@@ -379,10 +407,13 @@ def _intr_dof_mask(models, refine: bool, dtype=None):
 def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
              center_prior=None, layout: Optional[BALayout] = None,
              cam_reduce: Reduce = identity_reduce,
-             point_reduce: Reduce = identity_reduce):
+             point_reduce: Reduce = identity_reduce, pcg_steps=None):
     """One damped LM trial step (linearize + Schur/CG solve + apply).
     With shards, ``obs`` is this shard's rows and the hooks sum over the
-    shards (module docstring)."""
+    shards (module docstring). On the card with no shards the solve is the
+    kernel's (counter ``pcg_kernel`` of the open span; ``pcg_steps``, an
+    int64 scalar on the card or None, gathers its CG steps); otherwise
+    ``_solve_schur``."""
     if layout is None:
         layout = make_layout(obs, state.R.shape[0], state.X.shape[0],
                              state.intr.shape[0])
@@ -396,8 +427,13 @@ def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
         gc = nb.gc.clone()
         gc[:, 3:] += w * (state.C - center_prior)
         nb = nb._replace(U=nb.U + w * eye_c[None], gc=gc)
-    dc, dp, di = _solve_schur(nb, obs, lam, state, opts, fixed_pose_mask,
-                              intr_mask, layout, cam_reduce, point_reduce)
+    if _pcg_on_card(state.X, cam_reduce, point_reduce):
+        dc, dp, di = _solve_schur_kernel(nb, obs, lam, opts, fixed_pose_mask,
+                                         intr_mask, layout, pcg_steps)
+        spans.count("pcg_kernel")
+    else:
+        dc, dp, di = _solve_schur(nb, obs, lam, state, opts, fixed_pose_mask,
+                                  intr_mask, layout, cam_reduce, point_reduce)
     return _apply_step(state, dc, dp, di)
 
 
@@ -442,7 +478,14 @@ def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
     shard takes the same steps. Returns (state, BAStats).
 
     Spans, under the caller's: ``.trial`` (linearise, solve and apply as
-    enqueued) and ``.cost`` (the cost read, which waits on the device)."""
+    enqueued) and ``.cost`` (the cost read, which waits on the device).
+    Where the kernel solves, the CG steps it ran are gathered on the card
+    and read once, after the loop, into the caller's span's counter
+    ``pcg_steps``."""
+    kernel = _pcg_on_card(state.X, cam_reduce, point_reduce)
+    steps = (torch.zeros((), dtype=torch.int64, device=state.X.device)
+             if kernel else None)
+
     def cost_of(st):
         with spans.span(".cost"):
             return float(_full_cost(st, obs, opts, center_prior,
@@ -457,7 +500,7 @@ def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
             with spans.span(".trial"):
                 new_state = lm_trial(state, lam, obs, opts, fixed_pose_mask,
                                      intr_mask, center_prior, layout,
-                                     cam_reduce, point_reduce)
+                                     cam_reduce, point_reduce, steps)
             new_cost = cost_of(new_state)
             if new_cost == new_cost and abs(new_cost) != float("inf") \
                     and new_cost < cost:
@@ -471,6 +514,8 @@ def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
                 lam = lam * opts.lambda_up
                 if lam > opts.max_lambda:
                     break
+    if kernel:
+        spans.count("pcg_steps", int(steps))
     return state, BAStats(initial, cost, it, lam)
 
 
