@@ -221,6 +221,9 @@ import time
 import numpy as np
 import torch
 
+from regard3d_tpu_torch.kernels._build import LAUNCHES
+from regard3d_tpu_torch.tools.kernel_report import cuda_ms, host_us
+
 # published peaks of one H100 SXM (dense): FP32 FFMA, bf16 tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
@@ -284,18 +287,18 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+def launches_since(before):
+    """The kernel launches (``kernels/_build.LAUNCHES``) counted since
+    ``before``, a copy taken earlier."""
+    return {k: v - before[k] for k, v in LAUNCHES.items()}
+
+
+def call_ms(prepared, reps: int = 20) -> float:
+    """A prepared kernel call's C call alone (``_build.Call.c_call``:
+    operands, outputs and workspace made beforehand, so what the wrapper
+    adds is not in it), after one call that must succeed."""
+    check(prepared.c_call() == 0, f"{prepared.entry.__name__} failed")
+    return cuda_ms(prepared.c_call, reps=reps)
 
 
 def true_fundamental(ds, i, j):
@@ -429,18 +432,14 @@ def epipolar_check(ds, out):
 
 
 def phase_stage(ds, workdir):
-    from regard3d_tpu_torch.kernels import match as match_mod
-    from regard3d_tpu_torch.kernels import ransac
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline import features as fm
 
     out = os.path.join(workdir, "matches")
     torch.cuda.reset_peak_memory_stats()
-    match_mod.reset_launch_counts()
-    e_before = dict(ransac.LAUNCHES)
+    before = dict(LAUNCHES)
     stats = run_stage(ds, out)
-    launches = dict(match_mod.LAUNCHES)
-    launches.update({k: v - e_before[k] for k, v in ransac.LAUNCHES.items()})
+    launches = launches_since(before)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # artifacts exist and parse
@@ -491,12 +490,11 @@ def phase_flann(out, kps, descs):
     """(b) the stage's matching under the flann preset (bf16 operands) on
     the stage's own descriptors; its putative matches must agree with the
     f32 run's. Returns the run's launch counts."""
-    from regard3d_tpu_torch.kernels import match as match_mod
     from regard3d_tpu_torch.pipeline import compute_matches as cm
-    match_mod.reset_launch_counts()
+    before = dict(LAUNCHES)
     got = cm.match_all_pairs(kps, descs, cm.MatchConfig(matcher="flann"))
     torch.cuda.synchronize()
-    launches = dict(match_mod.LAUNCHES)
+    launches = launches_since(before)
     f32 = cm.load_matches_txt(os.path.join(out, "matches.putative.txt"))
     inter = union = 0
     for pr in set(f32) | set(got):
@@ -577,42 +575,6 @@ S_SHAPE = {"V": 11, "L": 4482, "per_point": 4, "K": 1, "cg_iterations": 40}
 S_BARRIERS, S_BARRIER_S, S_ROW_BYTES = 3, 1.1e-6, 172
 
 
-def host_us(fn, reps: int = 50) -> float:
-    """Host microseconds per call of ``fn`` over back-to-back calls (the
-    launches queue on the card; one synchronize after the timed calls)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / reps * 1e6
-
-
-def pair_c_call(match_mod, a, b, mb, bf16):
-    """The single-pair call's C entry alone (``r3d_l2_top2_pair``: the
-    prologue and the cluster launch) on a workspace and outputs allocated
-    once (``tools/kernel_report.pair_call``), as a function of no arguments
-    that returns its error code."""
-    from regard3d_tpu_torch.kernels import _build
-    from regard3d_tpu_torch.tools import kernel_report
-    _, call, _ = kernel_report.pair_call(_build.build(match_mod._SOURCE), a,
-                                         b, mb, bf16)
-    check(call() == 0, "the single-pair C call failed")
-    return call
-
-
-def host_split(match_mod, a, b, mb, bf16):
-    """(c) where a single-pair call's host time goes: the wrapper
-    ``l2_top2`` (argument checks, output allocation, the C call) and its C
-    call alone (tensor maps, the prologue's and the cluster's launches)."""
-    return {
-        "wrapper": host_us(lambda: match_mod.l2_top2(a, b, mb, bf16=bf16)),
-        "c_call": host_us(pair_c_call(match_mod, a, b, mb, bf16)),
-    }
-
-
 # the kernel instance each row launches (ptxas's name, template arguments
 # mode,D,... of the bf16 kernel)
 ROW_KERNEL = {"l2_top2_block_f32": "l2_top2_f32_kernel",
@@ -630,17 +592,6 @@ def row_usage(usage, name):
     row ``name`` launches, from phase (a)'s ptxas report."""
     u = next(v for k, v in usage.items() if k.startswith(ROW_KERNEL[name]))
     return u["registers"], u["spill_stores"] + u["spill_loads"]
-
-
-def call_ms(desc, mask, parr, bf16, mode=0):
-    """The block kernel's C call alone, on operands, |b|^2, pair table and
-    outputs made beforehand (what the wrapper adds is not in it)."""
-    from regard3d_tpu_torch.kernels import match as match_mod
-    from regard3d_tpu_torch.tools import kernel_report
-    run, _ = kernel_report.c_call(match_mod._lib(), desc, mask, parr, bf16,
-                                  mode)
-    check(run() == 0, "the block kernel's C call failed")
-    return cuda_ms(run, reps=20)
 
 
 def f64_errors(got, desc, mask, parr, chunk=4):
@@ -745,7 +696,8 @@ def phase_kernels(desc, mask, parr, usage):
                     lib=lambda ga=ga, gb=gb: torch.bmm(ga, gb.transpose(1, 2)),
                     M=N, Nn=N, in_bytes=dbytes, out_words=3, bf16=bf16,
                     replaces=K1, compare=top2(bf16))
-        row["call_ms"] = call_ms(desc, mask, parr, bf16)
+        row["call_ms"] = call_ms(match_mod.prepare_block(desc, mask, parr,
+                                                          bf16))
         if not bf16:
             row["f64_max_abs_err"], row["plain_f64_max_abs_err"] = \
                 f64_errors(match_mod.l2_top2_block(desc, mask, parr), desc,
@@ -778,9 +730,15 @@ def phase_kernels(desc, mask, parr, usage):
                     M=a.shape[0], Nn=b.shape[0],
                     in_bytes=(a.numel() + b.numel()) * 4 + mb.numel(),
                     out_words=3, bf16=bf16, replaces=K2, compare=top2(bf16))
-        row["call_ms"] = cuda_ms(pair_c_call(match_mod, a, b, mb, bf16),
-                                 reps=20)
-        row["host_us"] = host_split(match_mod, a, b, mb, bf16)
+        # where a call's host time goes: the wrapper (argument checks,
+        # output allocation, the C call) and its C call alone (tensor maps,
+        # the prologue's and the cluster's launches)
+        pair = match_mod.prepare_pair(a, b, mb, bf16)
+        row["call_ms"] = call_ms(pair)
+        row["host_us"] = {
+            "wrapper": host_us(lambda x=bf16: match_mod.l2_top2(a, b, mb,
+                                                                bf16=x)),
+            "c_call": host_us(pair.c_call)}
         ops = kernel_report.device_ops(
             lambda x=bf16: match_mod.l2_top2(a, b, mb, bf16=x))
         row["kernels_per_call"] = len(ops)
@@ -813,8 +771,8 @@ def phase_kernels(desc, mask, parr, usage):
                     M=N, Nn=N, in_bytes=dbytes, out_words=1,
                     bf16=True, replaces=K3,
                     compare=lambda n, g, w: _close(n, g, w, 1e-5, 1e-5))
-        row["call_ms"] = call_ms(desc, mask, parr, True,
-                                 1 + match_mod.ABLATIONS.index(mode))
+        row["call_ms"] = call_ms(match_mod.prepare_block(desc, mask, parr,
+                                                          True, mode))
         if mode == "mm_only":
             # catches only a product removed almost entirely: one that keeps
             # part of its mma still runs above the bound. Phase (a)'s HMMA
@@ -828,11 +786,11 @@ def phase_kernels(desc, mask, parr, usage):
     A = desc[pl[:3, 0], :1000].contiguous()
     Bt = desc[pl[:3, 1], :777].contiguous()
     ma, mb = mask[pl[:3, 0], :1000], mask[pl[:3, 1], :777]
-    before = match_mod.LAUNCHES["l2_top2_block_f32"]
+    before = LAUNCHES["l2_top2_block_f32"]
     got = match_mod.match_pairs_batched(A, ma, Bt, mb)
     torch.cuda.synchronize()
     want = match_mod.match_pairs_batched(A, ma, Bt, mb, use_kernel=False)
-    check(match_mod.LAUNCHES["l2_top2_block_f32"] == before + 1,
+    check(LAUNCHES["l2_top2_block_f32"] == before + 1,
           "match_pairs_batched did not launch K1 once")
     same = (got[0] == want[0]).float().mean().item()
     check(same >= 0.999 and (got[2] == want[2]).float().mean().item()
@@ -932,25 +890,6 @@ def e_rivals(P, cap, iters, seed=0, noise=1e-6, tile=256, good=8):
     return x1, x2, mask, idx, E
 
 
-def e_c_call(x1, x2, mask, me, idx):
-    """The E sweep's C call alone (``r3d_e_sweep``) on a workspace and
-    outputs allocated once, as a function of no arguments that returns its
-    error code."""
-    from regard3d_tpu_torch.kernels import ransac
-    lib = ransac._e_lib()
-    (P, cap, _), D = x1.shape, idx.shape[1]
-    start, dk = ransac._e_tables(x1.device, x1.dtype)
-    work = torch.empty((lib.r3d_e_sweep_workspace(0, P, D),),
-                       dtype=torch.uint8, device=x1.device)
-    model = torch.empty((P, 3, 3), device=x1.device)
-    ok = torch.empty((P,), dtype=torch.bool, device=x1.device)
-    args = (0, x1.device.index, x1.data_ptr(), x2.data_ptr(), mask.data_ptr(),
-            me.data_ptr(), idx.data_ptr(), P, cap, D, start.data_ptr(),
-            dk.data_ptr(), work.data_ptr(), model.data_ptr(), ok.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    return lambda: lib.r3d_e_sweep(*args)
-
-
 def phase_e_sweep(usage):
     """(c) the E-sweep kernel against its plain version at the
     compute-matches cell's shapes (E_SHAPE): on ``e_rivals``' pairs both
@@ -974,9 +913,9 @@ def phase_e_sweep(usage):
     r1, r2, rm, ridx, rE = e_rivals(P, cap, iters)
     r1, r2, rm, ridx = t(r1), t(r2), torch.tensor(rm, device="cuda"), \
         torch.tensor(ridx, device="cuda")
-    before = ransac.LAUNCHES["e_sweep_f32"]
+    before = LAUNCHES["e_sweep_f32"]
     Mk, okk = ransac.e_sweep(r1, r2, rm, me, ridx)
-    check(ransac.LAUNCHES["e_sweep_f32"] == before + 1,
+    check(LAUNCHES["e_sweep_f32"] == before + 1,
           "e_sweep did not launch the kernel once")
     Mp, okp = ransac.e_sweep_plain(r1, r2, rm, me, ridx)
 
@@ -1060,8 +999,6 @@ def phase_e_sweep(usage):
           f"(want 0.9), ok agrees on {ok_agree:.4f} (want 0.95)")
     ms = cuda_ms(run, reps=10)
     plain_ms = cuda_ms(plain, reps=1, warmup=0)
-    c_call = e_c_call(x1, x2, mask, me, idx)
-    check(c_call() == 0, "the E sweep's C call failed")
     flops = P * iters * (E_SOLVE_FLOP + 10 * cap * E_SCORE_FLOP)
     row = {
         "name": "e_sweep_f32", "route": "cuda",
@@ -1074,7 +1011,9 @@ def phase_e_sweep(usage):
         "cand_err": {"q50": q50, "q99": q99, "max": float(d.max()),
                      "within_1e-3": float((d < 1e-3).float().mean()),
                      "within_1e-2": within},
-        "ms": ms, "call_ms": cuda_ms(c_call, reps=10), "plain_ms": plain_ms,
+        "ms": ms, "plain_ms": plain_ms,
+        "call_ms": call_ms(ransac.prepare_e_sweep(x1, x2, mask, me, idx),
+                           reps=10),
         "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
         "library_ms": None, "shape": {**E_SHAPE, "dtype": "float32"},
         "tflops": flops / (ms * 1e-3) / 1e12,
@@ -1165,7 +1104,7 @@ def phase_schur_pcg(usage):
     imask = lm.intr_mask_of(obs, K, True)
     lam = 1e-4
     steps = torch.zeros((), dtype=torch.int64, device="cuda")
-    before = schur_pcg.LAUNCHES["schur_pcg_f32"]
+    before = LAUNCHES["schur_pcg_f32"]
     run = lambda st=None, lm_=lam: lm._solve_schur_kernel(
         nb, obs, lm_, opts, fixed, imask, layout, st)
     plain = lambda lay=layout, n=nb, lm_=lam: lm._solve_schur(
@@ -1176,7 +1115,7 @@ def phase_schur_pcg(usage):
     check(max(rel_1) <= 1e-4, f"Schur PCG at lam 1: (dc, dp, di) {rel_1} "
           f"of their largest entries off the plain solve's")
     got = run(steps)
-    check(schur_pcg.LAUNCHES["schur_pcg_f32"] == before + 2,
+    check(LAUNCHES["schur_pcg_f32"] == before + 2,
           "the Schur PCG kernel was not launched once a call")
     again = run()
     want = plain()
@@ -1196,14 +1135,9 @@ def phase_schur_pcg(usage):
             nb.U, nb.Vl, nb.Ui, nb.gc, nb.gp, nb.gi, obs.view_id,
             obs.intr_id, obs.point_id, fixed, imask, layout.cam, layout.pt,
             layout.intr, lam, opts.cg_iterations, opts.cg_tol)
-    a, _, work = schur_pcg.launch_args(*args)
-    c_call = lambda: schur_pcg.c_call(a, torch.float32, nb.A.device)
-    check(c_call() == 0, "the Schur PCG C call failed")
-    a0, _, work0 = schur_pcg.launch_args(*args[:-2], 0, opts.cg_tol)
     ms = cuda_ms(run, reps=20)
-    call = cuda_ms(c_call, reps=20)
-    call0 = cuda_ms(lambda: schur_pcg.c_call(a0, torch.float32,
-                                             nb.A.device), reps=20)
+    call = call_ms(schur_pcg.prepare(*args))
+    call0 = call_ms(schur_pcg.prepare(*args[:-2], 0, opts.cg_tol))
     plain_ms = cuda_ms(plain, reps=3)
     O = obs.view_id.shape[0]
     bound_ms = n_steps * (S_BARRIERS * S_BARRIER_S
@@ -1232,7 +1166,6 @@ def phase_schur_pcg(usage):
         f"largest entries {rel_k}; the plain tables' spread {yard}; at lam "
         f"1 {max(rel_1)}); repeat the same bits {same}; {row['regs']} "
         f"registers, {row['spills']} spilled bytes")
-    del work, work0
     return row
 
 
@@ -1293,11 +1226,11 @@ def phase_ties(desc, mask):
     # the public single-pair matcher on the card
     a, ma = desc[0, :K2_M].contiguous(), mask[0, :K2_M].contiguous()
     b, mb = desc[1, :K2_N].contiguous(), mask[1, :K2_N].contiguous()
-    before = match_mod.LAUNCHES["l2_top2_f32"]
+    before = LAUNCHES["l2_top2_f32"]
     got = match_mod.match_pair(a, ma, b, mb)
     torch.cuda.synchronize()
     want = match_mod.match_pair(a, ma, b, mb, use_kernel=False)
-    check(match_mod.LAUNCHES["l2_top2_f32"] == before + 1,
+    check(LAUNCHES["l2_top2_f32"] == before + 1,
           "match_pair did not launch K2 once")
     same = float(((got[0] == want[0]) & (got[2] == want[2])).float().mean())
     check(same >= 0.999, f"match_pair: idx and ok agree on {same:.5f}")
@@ -1328,11 +1261,10 @@ def phase_wide(desc, mask, parr):
 def phase_matcher_profile(desc, mask, parr):
     """(f) the matcher profile (this slice's entry point) on the stage's
     own descriptors; returns its launch counts."""
-    from regard3d_tpu_torch.kernels import match as match_mod
     from regard3d_tpu_torch.tools import profile_matcher as pm
-    match_mod.reset_launch_counts()
+    before = dict(LAUNCHES)
     res = pm.profile(desc, mask, parr)
-    launches = dict(match_mod.LAUNCHES)
+    launches = launches_since(before)
     log(json.dumps({"matcher_profile": res}))
     for key in ("l2_top2_block_bf16", "l2_top2_block_mm_only_bf16",
                 "l2_top2_block_min_only_bf16"):
@@ -1707,18 +1639,17 @@ def phase_detectors(ds, workdir):
     card agrees with the CPU. Times the ``.feat`` parse of TBMR's views
     (``feat_parse``). One ``detectors`` line; returns K1's launches per
     detector."""
-    from regard3d_tpu_torch.kernels import match as match_mod
     from regard3d_tpu_torch.pipeline import compute_matches as cm
     from regard3d_tpu_torch.pipeline import features as fm
     n_pairs = N_CAMS * (N_CAMS - 1) // 2
     rows, launches = {}, {}
     for d in MENU:
         out = os.path.join(workdir, f"matches_{d}")
-        match_mod.reset_launch_counts()
+        before = LAUNCHES["l2_top2_block_f32"]
         t0 = time.time()
         stats = run_stage(ds, out, detector=d)
         elapsed = time.time() - t0
-        launches[d] = match_mod.LAUNCHES["l2_top2_block_f32"]
+        launches[d] = LAUNCHES["l2_top2_block_f32"] - before
         zero = 0
         for i in range(N_CAMS):
             xy, sc, an, desc = fm.load_features(out, i)
@@ -1881,7 +1812,6 @@ def phase_scale(render, wd):
     defaults, on the views ``start_render`` rendered; its gates, K1 f32
     launched once per 64 pairs, one ``scale`` line beside SCALE200.json's
     record. Returns K1's launches and the run's match directory."""
-    from regard3d_tpu_torch.kernels import match as match_mod
     from regard3d_tpu_torch.tools import scale
     t0 = time.time()
     out, err = render.communicate(timeout=1200)
@@ -1889,12 +1819,12 @@ def phase_scale(render, wd):
     render_s = float(out.split()[-1])
     log(f"(k) rendered {SCALE_VIEWS} views in {render_s:.1f} s (beside the "
         f"earlier phases; waited {time.time() - t0:.1f} s)")
-    match_mod.reset_launch_counts()
+    before = dict(LAUNCHES)
     t0 = time.time()
     r = scale.run_scale(views=SCALE_VIEWS, hw=256, max_keypoints=1024,
                         window=8, loop=False, retrieval_k=0, workdir=wd)
     r["render_s"] = render_s
-    launches = dict(match_mod.LAUNCHES)
+    launches = launches_since(before)
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "SCALE200.json")
     ref = None
@@ -1944,7 +1874,7 @@ def phase_scale_kernel(matches, usage):
         out_words=3, bf16=False, replaces=K1,
         compare=lambda n, g, w: _compare(n, g, w, 1e-5, 1e-5), usage=usage,
         tag="(k)")
-    row["call_ms"] = call_ms(desc, mask, parr, False)
+    row["call_ms"] = call_ms(match_mod.prepare_block(desc, mask, parr))
     row["f64_max_abs_err"], row["plain_f64_max_abs_err"] = f64_errors(
         match_mod.l2_top2_block(desc, mask, parr), desc, mask, parr)
     log(f"(k) K1 f32: C call {row['call_ms']:.4f} ms; against float64: "
@@ -2389,7 +2319,7 @@ import hashlib, json, os, sys, time
 import numpy as np, torch
 from regard3d_tpu_torch.ba import lm, sharded
 from regard3d_tpu_torch.dist import launch
-from regard3d_tpu_torch.kernels import match as match_mod
+from regard3d_tpu_torch.kernels import _build
 from regard3d_tpu_torch.pipeline import compute_matches as cm
 assert launch.init_from_env()
 rank = int(os.environ[launch.ENV_PID])
@@ -2398,7 +2328,6 @@ with open(os.path.join(work, "rank.json")) as fh:
     cfg = json.load(fh)
 images = list(np.load(os.path.join(work, "views.npy")))
 dev = torch.device(cfg["device"])
-match_mod.reset_launch_counts()
 t0 = time.time()
 cm.run_compute_matches(images, os.path.join(work, "matches"),
                        cfg=cm.MatchConfig(), focals=np.asarray(cfg["focals"]),
@@ -2433,7 +2362,7 @@ for n in (state.R.shape[0] * 6 + state.intr.shape[0] * 9,
 with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
     json.dump({"rank": rank, "device": str(out.X.device),
                "backend": torch.distributed.get_backend(),
-               "launches": dict(match_mod.LAUNCHES), "stage_s": stage_s,
+               "launches": dict(_build.LAUNCHES), "stage_s": stage_s,
                "ba_s": ba_s, "all_reduce_ms": reduce_ms, "ba": st._asdict(),
                "state_sha256": digest.hexdigest()}, fh)
 """
@@ -2713,11 +2642,9 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     stamp("(e)")
     paths["profile"] = phase_matcher_profile(descs.data, descs.mask, parr)
     stamp("(f)")
-    from regard3d_tpu_torch.kernels import schur_pcg
-    s_before = schur_pcg.LAUNCHES["schur_pcg_f32"]
+    s_before = LAUNCHES["schur_pcg_f32"]
     g = phase_sfm(ds, out, work)
-    paths["sfm"] = {"schur_pcg_f32": schur_pcg.LAUNCHES["schur_pcg_f32"]
-                    - s_before}
+    paths["sfm"] = {"schur_pcg_f32": LAUNCHES["schur_pcg_f32"] - s_before}
     check(paths["sfm"]["schur_pcg_f32"] > 0,
           "the Schur PCG kernel was not launched on the sfm path")
     stamp("(g)")

@@ -1137,15 +1137,12 @@ long long bnorm_bytes(int N) { return ((long long)N * 4 + 15) / 16 * 16; }
 // pairs: (P, 2) int32 image indices into A and B. Outputs d1, d2: (P, M)
 // f32 and i1: (P, M) int32. ranks > 1 (at most 8) splits the columns over
 // the ranks of a thread-block cluster, each a range of whole 128-column
-// tiles; `unused` is not read (it held the scratch of an earlier column
-// split; the signature stays so that tools/kernel_report.py calls builds of
-// either). Launches on `stream` and returns the launch's error (0 on
+// tiles. Launches on `stream` and returns the launch's error (0 on
 // success).
 extern "C" int r3d_l2_top2(int dtype, int mode, const void* A, const void* B,
                            const float* bnorm, const int* pairs, int P, int M,
                            int N, int D, int ranks, float* d1, int* i1,
-                           float* d2, float* unused, void* stream) {
-  (void)unused;
+                           float* d2, void* stream) {
   return (int)run_top2(dtype, mode, A, B, bnorm, pairs, P, M, N, D, ranks,
                        d1, i1, d2, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -10,6 +10,14 @@ and keeps the compiler's output beside the library (``<library>.log``):
 for nvcc that is ptxas's report of each kernel's registers, spills and
 shared memory (``-Xptxas -v``), which :func:`ptxas_usage` reads.
 :func:`sass_opcodes` and :func:`hmma_counts` read the built SASS.
+
+It is also the one way a binding calls a kernel. :func:`load_library`
+sets each C entry's signature from ``SIGNATURES``. A binding's ``prepare``
+checks its tensors with :func:`check` (shapes, dtypes, contiguity, then
+one card), allocates outputs and workspace and returns a :class:`Call`;
+:func:`launch` makes the C call, raises on a ``cudaError`` and counts the
+launch in ``LAUNCHES``. ``Call.c_call`` is the C call alone, which the
+tools time.
 """
 
 from __future__ import annotations
@@ -17,12 +25,15 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import collections
+import importlib
 import os
 import re
 import shutil
 import subprocess
 import tempfile
-from typing import Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
 
 from regard3d_tpu_torch import runtime
 
@@ -31,6 +42,38 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+
+_I, _L, _P = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+# the extern "C" entries of each source, (restype, argtypes) by name, set on
+# every library built from a source of that file name when it is loaded; a
+# string names a ctypes.Structure of a binding, passed by pointer
+SIGNATURES = {
+    "match_top2.cu": {
+        "r3d_l2_top2": (_I, [_I] * 2 + [_P] * 4 + [_I] * 5 + [_P] * 4),
+        "r3d_l2_top2_pair_workspace": (_L, [_I] * 4),
+        "r3d_l2_top2_pair": (_I, [_I] * 2 + [_P] * 3 + [_I] * 4
+                             + [_P] * 5),
+        "r3d_l2_top2_clusters": (_I, [_I] * 3 + [ctypes.POINTER(_I)]),
+    },
+    "essential5.cu": {
+        "r3d_e_sweep_workspace": (_L, [_I] * 3),
+        "r3d_e_sweep": (_I, [_I] * 2 + [_P] * 5 + [_I] * 3 + [_P] * 6),
+        "r3d_e_solve": (_I, [_I] * 2 + [_P] * 2 + [_I] + [_P] * 5),
+    },
+    "schur_pcg.cu": {
+        "r3d_schur_pcg_workspace": (_L, [_I, "schur_pcg._Args"]),
+        "r3d_schur_pcg": (_I, [_I, _I, "schur_pcg._Args", _P]),
+    },
+}
+
+# C calls of the kernels by entry and dtype: plain integers that callers
+# read before and after to show a run went through a kernel. A call counts
+# once, however many kernels it launches.
+LAUNCHES: Dict[str, int] = dict.fromkeys(
+    [f"l2_top2{w}_{t}" for w in ("_block", "") for t in ("f32", "bf16")]
+    + [f"l2_top2_block_{m}_bf16" for m in ("mm_only", "min_only")]
+    + [f"{k}_{t}" for k in ("e_sweep", "e_solve", "schur_pcg")
+       for t in ("f32", "f64")], 0)
 
 
 def nvcc_path() -> str:
@@ -195,9 +238,97 @@ def hmma_counts(lib_path: str) -> Dict[str, int]:
     return out
 
 
+def _argtype(a):
+    if isinstance(a, str):
+        module, name = a.split(".")
+        return ctypes.POINTER(getattr(importlib.import_module(
+            f"regard3d_tpu_torch.kernels.{module}"), name))
+    return a
+
+
 def load_library(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built first if needed."""
+    """The loaded library of ``csrc/<source>``, or of the CUDA source file
+    at the path ``source``, built first if needed, with the signatures of
+    ``SIGNATURES`` set on its entries."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = _LIBS[source] = ctypes.CDLL(build(source))
+        lib = ctypes.CDLL(compile_library(nvcc_path(), NVCC_FLAGS, source)
+                          if os.sep in source else build(source))
+        for name, (res, args) in SIGNATURES[os.path.basename(source)].items():
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, [_argtype(a) for a in args]
+        _LIBS[source] = lib
     return lib
+
+
+def _dtype_names(dtypes) -> str:
+    return " or ".join(str(d).replace("torch.", "") for d in dtypes)
+
+
+def check(**want) -> torch.device:
+    """Hold each tensor to what a C entry takes: ``name=(tensor, shape,
+    dtype)``, ``shape`` a tuple of sizes (a string names a size that must
+    be the same wherever it appears) or None, ``dtype`` one dtype or a
+    tuple of those allowed. Each tensor in turn: its shape, its dtype,
+    contiguous; then all of them on one card, the first one's, which is
+    returned. Raises ValueError naming the first argument that is wrong
+    and why."""
+    sizes: Dict[str, int] = {}
+    for name, (t, shape, dtype) in want.items():
+        if shape is not None:
+            full = tuple(sizes.setdefault(d, n) if isinstance(d, str) else d
+                         for d, n in zip(shape, t.shape))
+            if len(shape) != t.dim() or full != tuple(t.shape):
+                wanted = ", ".join(str(sizes.get(d, d)) for d in shape)
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                                 f"({wanted})")
+        dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name} is {_dtype_names((t.dtype,))}, want "
+                             f"{_dtype_names(dtypes)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    first, (t0, _, _) = next(iter(want.items()))
+    dev = t0.device
+    for name, (t, _, _) in want.items():
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name} must be a CUDA tensor on {first}'s "
+                             f"card, got {t.device}")
+    return dev
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current stream, a C call's last argument."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+class Call(NamedTuple):
+    """One prepared C call: ``entry(*args)``, the stream its last argument;
+    ``keep`` the tensors it reads or writes that must outlive it (the
+    arguments hold only their addresses); ``out`` what it returns to the
+    caller; ``key`` its count in ``LAUNCHES``."""
+    entry: Any
+    args: tuple
+    keep: tuple
+    out: Any
+    key: str
+
+    def c_call(self) -> int:
+        """The C call alone (for timing): its cudaError_t, unchecked."""
+        return self.entry(*self.args)
+
+
+def call_entry(entry, *args) -> None:
+    """``entry(*args)`` of a C entry that returns a cudaError_t; raises
+    RuntimeError naming the entry and the error unless it is 0."""
+    err = entry(*args)
+    if err != 0:
+        raise RuntimeError(f"{entry.__name__} failed (cudaError {err})")
+
+
+def launch(call: Call):
+    """Make ``call``'s C call, count it in ``LAUNCHES`` and return its
+    outputs; raises RuntimeError if the launch fails (nothing counted)."""
+    call_entry(call.entry, *call.args)
+    LAUNCHES[call.key] += 1
+    return call.out

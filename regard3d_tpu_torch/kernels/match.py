@@ -59,21 +59,8 @@ MAX_RANKS = 8
 ABLATIONS = ("mm_only", "min_only")
 _MODE = {"full": 0, "mm_only": 1, "min_only": 2}
 
-# launches of the CUDA kernels, per wrapper and operand dtype (plain
-# integers; reset by callers that want to show a run went through the
-# kernel). A single-pair call counts once: its prologue and its cluster
-# launch are one C call.
-LAUNCHES: Dict[str, int] = {
-    **{f"{w}_{t}": 0 for w in ("l2_top2_block", "l2_top2")
-       for t in ("f32", "bf16")},
-    **{f"l2_top2_block_{m}_bf16": 0 for m in ABLATIONS},
-}
 _DTYPE_TAG = {torch.float32: "f32", torch.bfloat16: "bf16"}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+_DESC_DTYPES = tuple(_DTYPE_TAG)
 
 
 # ---------------------------------------------------------------------------
@@ -217,16 +204,6 @@ def l2_top2_block_ablated_plain(desc, mask, pairs, mode: str,
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib():
-    lib = _build.load_library(_SOURCE)
-    fn = lib.r3d_l2_top2
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
-    return fn
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -265,16 +242,11 @@ def _cluster_fits(index: int, bf16: bool, D: int) -> Tuple[int, ...]:
     (``cudaOccupancyMaxActiveClusters``): one 227 KB block an SM, so a
     cluster of r needs r free SMs of one GPC."""
     fn = _build.load_library(_SOURCE).r3d_l2_top2_clusters
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     out = []
     with torch.cuda.device(index):
         for r in range(1, MAX_RANKS + 1):
             n = ctypes.c_int(0)
-            err = fn(int(bf16), D, r, ctypes.byref(n))
-            if err != 0:
-                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed "
-                                   f"(cudaError {err})")
+            _build.call_entry(fn, int(bf16), D, r, ctypes.byref(n))
             out.append(n.value)
     return tuple(out)
 
@@ -285,17 +257,12 @@ def plan(dev, bf16: bool, P: int, M: int, N: int, D: int) -> Tuple[int, int]:
                         1 if bf16 else 2)
 
 
-def _check_desc(name, t, dims: int = 3):
-    """What the kernels' tensor maps take: a contiguous (B, N, D) float32
-    or bfloat16 tensor ((N, D) with ``dims=2``) whose rows are whole k
-    steps of 16 (so a multiple of 16 bytes, as TMA needs), D <=
-    MAX_BF16_DIM in bfloat16, 16-byte aligned, on a card."""
-    if t.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
-    if t.dim() != dims or not t.is_contiguous():
-        shape = "(B, N, D)" if dims == 3 else "(N, D)"
-        raise ValueError(f"{name} must be a contiguous {shape} tensor")
-    D = t.shape[-1]
+def _check_tma(name, t):
+    """What the kernels' tensor maps take beyond ``_build.check``: rows of
+    whole k steps of 16 (so a multiple of 16 bytes, as TMA needs), D <=
+    MAX_BF16_DIM in bfloat16, 16-byte aligned. Checked before the rest of
+    the layout."""
+    D = t.shape[-1] if t.dim() else 0
     if D % 16 or D == 0:
         raise ValueError(f"{name}: D={D} must be a multiple of 16")
     if t.dtype == torch.bfloat16 and D > MAX_BF16_DIM:
@@ -303,8 +270,6 @@ def _check_desc(name, t, dims: int = 3):
                          f"{MAX_BF16_DIM}, got {D}")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor")
 
 
 def _to_device(t, dev):
@@ -336,39 +301,37 @@ def _outputs(shape, dev):
     return d1, i1.view(torch.int32), d2
 
 
-def _launch(desc_a, desc_b, bnorm, pairs_h, mode: str = "full"):
-    """One kernel call: rows of desc_a[pairs_h[:, 0]] against
-    desc_b[pairs_h[:, 1]] (a table checked by ``_host_pairs``). Returns
-    (d1, i1, d2), each (P, M); the ablation modes fill only d1."""
-    _check_desc("desc_a", desc_a)
-    _check_desc("desc_b", desc_b)
-    if desc_a.dtype != desc_b.dtype or desc_a.device != desc_b.device:
-        raise ValueError("desc_a and desc_b must share dtype and device")
-    if desc_a.shape[2] != desc_b.shape[2]:
-        raise ValueError("descriptor widths differ")
-    if mode != "full" and desc_a.dtype != torch.bfloat16:
+def _block_call(desc_a, desc_b, bnorm, pairs_h,
+                mode: str = "full") -> _build.Call:
+    """One block-kernel call, prepared: rows of desc_a[pairs_h[:, 0]]
+    against desc_b[pairs_h[:, 1]] (a table checked by ``_host_pairs``)
+    with |b|^2 ``bnorm``. Its outputs are (d1, i1, d2), each (P, M); the
+    ablation modes fill and return only d1."""
+    _check_tma("desc_a", desc_a)
+    _check_tma("desc_b", desc_b)
+    dev = _build.check(desc_a=(desc_a, ("Ba", "M", "D"), _DESC_DTYPES),
+                       desc_b=(desc_b, ("Bb", "N", "D"), desc_a.dtype),
+                       bnorm=(bnorm, ("Bb", "N"), torch.float32))
+    tag = _DTYPE_TAG[desc_a.dtype]
+    if mode != "full" and tag != "bf16":
         raise TypeError(f"mode {mode!r} runs on bfloat16 operands")
-    dev = desc_a.device
     Ba, M, D = desc_a.shape
-    Bb, N, _ = desc_b.shape
+    N = desc_b.shape[1]
     pairs_d = _to_device(pairs_h, dev)
-    if bnorm.shape != (Bb, N) or bnorm.dtype != torch.float32 \
-            or bnorm.device != dev or not bnorm.is_contiguous():
-        raise ValueError("bnorm must be a contiguous (B, N) float32 tensor "
-                         "on the descriptors' device")
     P = pairs_d.shape[0]
     ranks = 1
     if mode == "full":
-        ranks = plan(dev, desc_a.dtype == torch.bfloat16, P, M, N, D)[0]
+        ranks = plan(dev, tag == "bf16", P, M, N, D)[0]
     d1, i1, d2 = _outputs((P, M), dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(0 if desc_a.dtype == torch.float32 else 1, _MODE[mode],
-                 desc_a.data_ptr(), desc_b.data_ptr(), bnorm.data_ptr(),
-                 pairs_d.data_ptr(), P, M, N, D, ranks,
-                 d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), None, stream)
-    if err != 0:
-        raise RuntimeError(f"l2_top2 CUDA kernel launch failed (cudaError {err})")
-    return d1, i1, d2
+    fn = _build.load_library(_SOURCE).r3d_l2_top2
+    args = (int(tag == "bf16"), _MODE[mode], desc_a.data_ptr(),
+            desc_b.data_ptr(), bnorm.data_ptr(), pairs_d.data_ptr(), P, M, N,
+            D, ranks, d1.data_ptr(), i1.data_ptr(), d2.data_ptr(),
+            _build.stream(dev))
+    key = (f"l2_top2_block_{tag}" if mode == "full"
+           else f"l2_top2_block_{mode}_bf16")
+    return _build.Call(fn, args, (desc_a, desc_b, bnorm, pairs_d),
+                       (d1, i1, d2) if mode == "full" else d1, key)
 
 
 def _bnorm(desc, mask, images=None):
@@ -392,6 +355,17 @@ def _kernel_operands(desc, bf16):
     return (desc.to(torch.bfloat16) if bf16 else desc).contiguous()
 
 
+def prepare_block(desc, mask, pairs, bf16: bool = False,
+                  mode: str = "full") -> _build.Call:
+    """The C call of ``l2_top2_block`` (``mode`` "full") or of
+    ``l2_top2_block_ablated`` on CUDA tensors, prepared: operands, |b|^2
+    of the images the table reads as B and the pair table made."""
+    ops = _kernel_operands(desc, bf16 or mode != "full")
+    pairs_h = _host_pairs(pairs, desc.shape[0], desc.shape[0])
+    return _block_call(ops, ops, _bnorm(desc, mask, pairs_h[:, 1]), pairs_h,
+                       mode)
+
+
 def l2_top2_block(desc, mask, pairs, bf16: bool = False):
     """Fused two-NN search for a BLOCK of pairs (K1). desc: (B, N, D) f32 or
     bf16; mask: (B, N) bool; pairs: (P, 2) int. Returns (d1, i1, d2), each
@@ -399,23 +373,7 @@ def l2_top2_block(desc, mask, pairs, bf16: bool = False):
     version; CUDA tensors launch the kernel."""
     if not desc.is_cuda:
         return l2_top2_block_plain(desc, mask, pairs, bf16)
-    ops = _kernel_operands(desc, bf16)
-    pairs_h = _host_pairs(pairs, desc.shape[0], desc.shape[0])
-    out = _launch(ops, ops, _bnorm(desc, mask, pairs_h[:, 1]), pairs_h)
-    LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[ops.dtype]}"] += 1
-    return out
-
-
-def _pair_entry(lib):
-    """``r3d_l2_top2_pair`` of a loaded library, its argument types set."""
-    fn = lib.r3d_l2_top2_pair
-    if fn.restype is not ctypes.c_int or fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
-        lib.r3d_l2_top2_pair_workspace.restype = ctypes.c_longlong
-        lib.r3d_l2_top2_pair_workspace.argtypes = [ctypes.c_int] * 4
-    return fn
+    return _build.launch(prepare_block(desc, mask, pairs, bf16))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -425,9 +383,9 @@ def _pair_setup(index: int, kernel_bf16: bool, rnd: bool, M: int, N: int,
     shape on card ``index``, worked out once: the wrapper's host time is
     most of a call's."""
     lib = _build.load_library(_SOURCE)
-    fn = _pair_entry(lib)
     ranks = plan(torch.device("cuda", index), kernel_bf16, 1, M, N, D)[0]
-    return fn, ranks, lib.r3d_l2_top2_pair_workspace(M, N, D, int(rnd))
+    return (lib.r3d_l2_top2_pair, ranks,
+            lib.r3d_l2_top2_pair_workspace(M, N, D, int(rnd)))
 
 
 # K2's workspace (|b|^2, the bf16 operands) per (device, stream), grown on
@@ -449,6 +407,30 @@ def _workspace(dev, stream: int, nbytes: int) -> torch.Tensor:
     return w
 
 
+def prepare_pair(desc_a, desc_b, mask_b, bf16: bool = False) -> _build.Call:
+    """The C call of ``l2_top2`` on CUDA tensors, prepared. It uses the
+    current stream's workspace: callers on more than one thread hold
+    ``_WORKSPACE_LOCK`` from here to its launch."""
+    a, b, mb = desc_a.contiguous(), desc_b.contiguous(), mask_b.contiguous()
+    _check_tma("desc_a", a)
+    _check_tma("desc_b", b)
+    dev = _build.check(desc_a=(a, ("M", "D"), _DESC_DTYPES),
+                       desc_b=(b, ("N", "D"), a.dtype),
+                       mask_b=(mb, ("N",), torch.bool))
+    (M, D), N = a.shape, b.shape[0]
+    rnd = bf16 and a.dtype == torch.float32
+    kernel_bf16 = rnd or a.dtype == torch.bfloat16
+    fn, ranks, nbytes = _pair_setup(dev.index, kernel_bf16, rnd, M, N, D)
+    stream = _build.stream(dev)
+    d1, i1, d2 = _outputs((M,), dev)
+    work = _workspace(dev, stream, nbytes)
+    args = (int(a.dtype == torch.bfloat16), int(rnd), a.data_ptr(),
+            b.data_ptr(), mb.data_ptr(), M, N, D, ranks, work.data_ptr(),
+            d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), stream)
+    return _build.Call(fn, args, (a, b, mb, work), (d1, i1, d2),
+                       "l2_top2_bf16" if kernel_bf16 else "l2_top2_f32")
+
+
 def l2_top2(desc_a, desc_b, mask_b, bf16: bool = False):
     """Fused two-NN search for one pair (K2): desc_a (M, D), desc_b (N, D)
     of one dtype, mask_b (N,) bool. Returns (d1, i1, d2), each (M,). On a
@@ -456,34 +438,8 @@ def l2_top2(desc_a, desc_b, mask_b, bf16: bool = False):
     f32 descriptors, the rounded operands) and one cluster launch."""
     if not desc_a.is_cuda:
         return l2_top2_plain(desc_a, desc_b, mask_b, bf16)
-    a, b, mb = desc_a.contiguous(), desc_b.contiguous(), mask_b.contiguous()
-    _check_desc("desc_a", a, 2)
-    _check_desc("desc_b", b, 2)
-    if a.dtype != b.dtype or a.device != b.device:
-        raise ValueError("desc_a and desc_b must share dtype and device")
-    (M, D), N = a.shape, b.shape[0]
-    if b.shape[1] != D:
-        raise ValueError("descriptor widths differ")
-    if mb.shape != (N,) or mb.dtype != torch.bool or mb.device != a.device:
-        raise ValueError("mask_b must be an (N,) bool tensor on the "
-                         "descriptors' device")
-    dev = a.device
-    rnd = bf16 and a.dtype == torch.float32
-    kernel_bf16 = rnd or a.dtype == torch.bfloat16
-    fn, ranks, nbytes = _pair_setup(dev.index, kernel_bf16, rnd, M, N, D)
-    stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    d1, i1, d2 = _outputs((M,), dev)
     with _WORKSPACE_LOCK:
-        work = _workspace(dev, stream, nbytes)
-        err = fn(int(a.dtype == torch.bfloat16), int(rnd), a.data_ptr(),
-                 b.data_ptr(), mb.data_ptr(), M, N, D, ranks,
-                 work.data_ptr(), d1.data_ptr(), i1.data_ptr(),
-                 d2.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"l2_top2 CUDA kernel launch failed (cudaError "
-                           f"{err})")
-    LAUNCHES["l2_top2_bf16" if kernel_bf16 else "l2_top2_f32"] += 1
-    return d1, i1, d2
+        return _build.launch(prepare_pair(desc_a, desc_b, mask_b, bf16))
 
 
 def l2_top2_block_ablated(desc, mask, pairs, mode: str):
@@ -496,12 +452,7 @@ def l2_top2_block_ablated(desc, mask, pairs, mode: str):
         raise ValueError(f"mode must be one of {ABLATIONS}, got {mode!r}")
     if not desc.is_cuda:
         return l2_top2_block_ablated_plain(desc, mask, pairs, mode, TILE_N)
-    ops = _kernel_operands(desc, True)
-    pairs_h = _host_pairs(pairs, desc.shape[0], desc.shape[0])
-    d1, _, _ = _launch(ops, ops, _bnorm(desc, mask, pairs_h[:, 1]), pairs_h,
-                       mode)
-    LAUNCHES[f"l2_top2_block_{mode}_bf16"] += 1
-    return d1
+    return _build.launch(prepare_block(desc, mask, pairs, True, mode))
 
 
 # ---------------------------------------------------------------------------
@@ -544,9 +495,8 @@ def match_pairs_batched(desc_a, mask_a, desc_b, mask_b, ratio: float = 0.8,
         P = desc_a.shape[0]
         a, b = desc_a.contiguous(), desc_b.contiguous()
         pairs = torch.arange(P, dtype=torch.int32)[:, None].expand(P, 2)
-        d1, i1, d2 = _launch(a, b, _bnorm(b, mask_b),
-                             _host_pairs(pairs, P, P))
-        LAUNCHES[f"l2_top2_block_{_DTYPE_TAG[a.dtype]}"] += 1
+        d1, i1, d2 = _build.launch(_block_call(a, b, _bnorm(b, mask_b),
+                                               _host_pairs(pairs, P, P)))
     else:
         d1, i1, d2 = _top2_plain(desc_a, desc_b, _bnorm(desc_b, mask_b),
                                  False)

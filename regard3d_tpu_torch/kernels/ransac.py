@@ -26,7 +26,6 @@ Random draws come from ``torch.Generator``s, one per pair. They cannot give
 
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
@@ -37,12 +36,6 @@ from regard3d_tpu_torch.kernels import _build, geometry
 _BIG = 1e30
 _E_SOURCE = "essential5.cu"
 
-# launches of the E-sweep kernel (``e_sweep``) and of its solver alone
-# (``essential_5pt``) per dtype: plain integers that callers read before and
-# after to show a run went through the kernel. A sweep counts once: its
-# solve-and-score launch and its per-pair reduction are one C call.
-LAUNCHES: Dict[str, int] = {f"{k}_{t}": 0 for k in ("e_sweep", "e_solve")
-                             for t in ("f32", "f64")}
 _E_DTYPE = {torch.float32: (0, "f32"), torch.float64: (1, "f64")}
 
 
@@ -303,22 +296,6 @@ def e_sweep_plain(x1n, x2n, mask, max_err_sq, idx):
     return b_model, b_ok
 
 
-def _e_lib():
-    lib = _build.load_library(_E_SOURCE)
-    if lib.r3d_e_sweep.argtypes is None:
-        lib.r3d_e_sweep.restype = lib.r3d_e_solve.restype = ctypes.c_int
-        lib.r3d_e_sweep.argtypes = ([ctypes.c_int] * 2
-                                    + [ctypes.c_void_p] * 5
-                                    + [ctypes.c_int] * 3
-                                    + [ctypes.c_void_p] * 6)
-        lib.r3d_e_solve.argtypes = ([ctypes.c_int] * 2
-                                    + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-                                    + [ctypes.c_void_p] * 5)
-        lib.r3d_e_sweep_workspace.restype = ctypes.c_longlong
-        lib.r3d_e_sweep_workspace.argtypes = [ctypes.c_int] * 3
-    return lib
-
-
 # the kernel's constant tables per (card, dtype): _nullspace4's start and
 # Durand-Kerner's, made on the card once
 _E_TABLES: Dict[Tuple[int, torch.dtype], Tuple[torch.Tensor, ...]] = {}
@@ -335,32 +312,11 @@ def _e_tables(dev, dtype):
     return tables
 
 
-def _check_on_card(**args):
-    """The points (the first argument) float32 or float64, every tensor
-    contiguous and on the points' card; raises ValueError otherwise."""
-    first = next(iter(args.values()))
-    if first.dtype not in _E_DTYPE:
-        raise ValueError(f"points must be float32 or float64, got "
-                         f"{first.dtype}")
-    for name, t in args.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if not t.is_cuda or t.device != first.device:
-            raise ValueError(f"{name} must be a CUDA tensor on the points' "
-                             f"card, got {t.device}")
-
-
-def _e_launch_error(err):
-    if err != 0:
-        raise RuntimeError(f"E-sweep CUDA kernel launch failed (cudaError "
-                           f"{err})")
-
-
-def _e_sweep_launch(x1n, x2n, mask, max_err_sq, idx):
-    """One C call of the E-sweep kernel: x1n, x2n (P, N, 2) float32 or
-    float64, mask (P, N) bool, max_err_sq (P,) of the points' dtype, idx
-    (P, D, 5) int64, all contiguous on one card. Returns (model (P, 3, 3),
-    ok (P,)). Raises ValueError on anything else."""
+def prepare_e_sweep(x1n, x2n, mask, max_err_sq, idx) -> _build.Call:
+    """The C call of the E-sweep kernel, prepared: x1n, x2n (P, N, 2)
+    float32 or float64, mask (P, N) bool, max_err_sq (P,) of the points'
+    dtype, idx (P, D, 5) int64, all contiguous on one card. Its outputs are
+    (model (P, 3, 3), ok (P,)). Raises ValueError on anything else."""
     P, n = mask.shape if mask.dim() == 2 else (0, 0)
     D = idx.shape[1] if idx.dim() == 3 else 0
     if (x1n.shape != (P, n, 2) or x2n.shape != (P, n, 2)
@@ -371,28 +327,46 @@ def _e_sweep_launch(x1n, x2n, mask, max_err_sq, idx):
                          f"max_err_sq {tuple(max_err_sq.shape)}, idx "
                          f"{tuple(idx.shape)}: want (P, N, 2) twice, "
                          f"(P, N), (P,), (P, D, 5), none empty, P <= 65535")
-    if x2n.dtype != x1n.dtype or max_err_sq.dtype != x1n.dtype:
-        raise ValueError("x2n and max_err_sq must have x1n's dtype")
-    if mask.dtype != torch.bool or idx.dtype != torch.int64:
-        raise ValueError(f"mask must be bool and idx int64, got {mask.dtype} "
-                         f"and {idx.dtype}")
-    _check_on_card(x1n=x1n, x2n=x2n, mask=mask, max_err_sq=max_err_sq,
-                   idx=idx)
-    dev = x1n.device
+    dev = _build.check(x1n=(x1n, None, tuple(_E_DTYPE)),
+                       x2n=(x2n, None, x1n.dtype),
+                       mask=(mask, None, torch.bool),
+                       max_err_sq=(max_err_sq, None, x1n.dtype),
+                       idx=(idx, None, torch.int64))
     code, tag = _E_DTYPE[x1n.dtype]
-    lib = _e_lib()
+    lib = _build.load_library(_E_SOURCE)
     start, dk = _e_tables(dev, x1n.dtype)
     work = torch.empty((lib.r3d_e_sweep_workspace(code, P, D),),
                        dtype=torch.uint8, device=dev)
     model = torch.empty((P, 3, 3), dtype=x1n.dtype, device=dev)
     ok = torch.empty((P,), dtype=torch.bool, device=dev)
-    _e_launch_error(lib.r3d_e_sweep(
-        code, dev.index, x1n.data_ptr(), x2n.data_ptr(), mask.data_ptr(),
-        max_err_sq.data_ptr(), idx.data_ptr(), P, n, D, start.data_ptr(),
-        dk.data_ptr(), work.data_ptr(), model.data_ptr(), ok.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream))
-    LAUNCHES[f"e_sweep_{tag}"] += 1
-    return model, ok
+    args = (code, dev.index, x1n.data_ptr(), x2n.data_ptr(), mask.data_ptr(),
+            max_err_sq.data_ptr(), idx.data_ptr(), P, n, D, start.data_ptr(),
+            dk.data_ptr(), work.data_ptr(), model.data_ptr(), ok.data_ptr(),
+            _build.stream(dev))
+    return _build.Call(lib.r3d_e_sweep, args,
+                       (x1n, x2n, mask, max_err_sq, idx, start, dk, work),
+                       (model, ok), f"e_sweep_{tag}")
+
+
+def prepare_e_solve(x1, x2) -> _build.Call:
+    """The C call of the E-sweep kernel's solver alone, prepared: x1, x2
+    (S, 5, 2) float32 or float64, contiguous on one card. Its outputs are
+    (E (S, 10, 3, 3), ok (S, 10))."""
+    S = x1.shape[0] if x1.dim() else 0
+    if x1.shape != (S, 5, 2) or x2.shape != x1.shape or S == 0:
+        raise ValueError(f"x1, x2 must be two non-empty (S, 5, 2) tensors, "
+                         f"got {tuple(x1.shape)}, {tuple(x2.shape)}")
+    dev = _build.check(x1=(x1, None, tuple(_E_DTYPE)),
+                       x2=(x2, None, x1.dtype))
+    code, tag = _E_DTYPE[x1.dtype]
+    start, dk = _e_tables(dev, x1.dtype)
+    E = torch.empty((S, 10, 3, 3), dtype=x1.dtype, device=dev)
+    ok = torch.empty((S, 10), dtype=torch.bool, device=dev)
+    args = (code, dev.index, x1.data_ptr(), x2.data_ptr(), S,
+            start.data_ptr(), dk.data_ptr(), E.data_ptr(), ok.data_ptr(),
+            _build.stream(dev))
+    return _build.Call(_build.load_library(_E_SOURCE).r3d_e_solve, args,
+                       (x1, x2, start, dk), (E, ok), f"e_solve_{tag}")
 
 
 def essential_5pt(x1, x2):
@@ -401,25 +375,7 @@ def essential_5pt(x1, x2):
     sample, launched alone (for tests and the smoke's candidate errors)."""
     if not x1.is_cuda:
         return geometry.fit_essential_5pt(x1, x2)
-    x1, x2 = x1.contiguous(), x2.contiguous()
-    S = x1.shape[0]
-    if (x1.shape != (S, 5, 2) or x2.shape != x1.shape or x2.dtype != x1.dtype
-            or S == 0):
-        raise ValueError(f"x1, x2 must be two non-empty (S, 5, 2) tensors of "
-                         f"one dtype, got {tuple(x1.shape)}, "
-                         f"{tuple(x2.shape)}")
-    _check_on_card(x1=x1, x2=x2)
-    dev = x1.device
-    code, tag = _E_DTYPE[x1.dtype]
-    start, dk = _e_tables(dev, x1.dtype)
-    E = torch.empty((S, 10, 3, 3), dtype=x1.dtype, device=dev)
-    ok = torch.empty((S, 10), dtype=torch.bool, device=dev)
-    _e_launch_error(_e_lib().r3d_e_solve(
-        code, dev.index, x1.data_ptr(), x2.data_ptr(), S, start.data_ptr(),
-        dk.data_ptr(), E.data_ptr(), ok.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream))
-    LAUNCHES[f"e_solve_{tag}"] += 1
-    return E, ok
+    return _build.launch(prepare_e_solve(x1.contiguous(), x2.contiguous()))
 
 
 def e_sweep(x1n, x2n, mask, max_err_sq, idx):
@@ -428,9 +384,9 @@ def e_sweep(x1n, x2n, mask, max_err_sq, idx):
     kernel of ``csrc/essential5.cu`` (or raise)."""
     if not x1n.is_cuda:
         return e_sweep_plain(x1n, x2n, mask, max_err_sq, idx)
-    return _e_sweep_launch(x1n.contiguous(), x2n.contiguous(),
-                           mask.contiguous(), max_err_sq.contiguous(),
-                           idx.contiguous())
+    return _build.launch(prepare_e_sweep(
+        x1n.contiguous(), x2n.contiguous(), mask.contiguous(),
+        max_err_sq.contiguous(), idx.contiguous()))
 
 
 def _e_one(generators, x1n, x2n, mask, logalpha0, max_err_sq, iters: int,

@@ -17,7 +17,7 @@ fallback: a call launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -25,10 +25,6 @@ from regard3d_tpu_torch.core.segments import SegmentTable
 from regard3d_tpu_torch.kernels import _build
 
 _SOURCE = "schur_pcg.cu"
-
-# C calls of the kernel per dtype: plain integers that callers read before
-# and after to show a run went through the kernel
-LAUNCHES: Dict[str, int] = {"schur_pcg_f32": 0, "schur_pcg_f64": 0}
 _DTYPE = {torch.float32: (0, "f32"), torch.float64: (1, "f64")}
 
 _P = ctypes.c_void_p
@@ -47,43 +43,9 @@ class _Args(ctypes.Structure):
                 + [(n, _P) for n in ("dc", "dp", "di", "steps", "work")])
 
 
-def _lib():
-    lib = _build.load_library(_SOURCE)
-    if lib.r3d_schur_pcg.argtypes is None:
-        args = ctypes.POINTER(_Args)
-        lib.r3d_schur_pcg.restype = ctypes.c_int
-        lib.r3d_schur_pcg.argtypes = [ctypes.c_int, ctypes.c_int, args, _P]
-        lib.r3d_schur_pcg_workspace.restype = ctypes.c_longlong
-        lib.r3d_schur_pcg_workspace.argtypes = [ctypes.c_int, args]
-    return lib
-
-
-def _check(want, tensors):
-    """Shapes, dtypes, contiguity, then the card, in that order; raises
-    ValueError on the first that is wrong. ``want``: name -> (shape,
-    dtype)."""
-    for name, (shape, dtype) in want.items():
-        t = tensors[name]
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
-                             f"{shape}")
-    for name, (shape, dtype) in want.items():
-        if tensors[name].dtype != dtype:
-            raise ValueError(f"{name} is {tensors[name].dtype}, want {dtype}")
-    for name in want:
-        if not tensors[name].is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    dev = tensors["A"].device
-    for name in want:
-        t = tensors[name]
-        if not t.is_cuda or t.device != dev:
-            raise ValueError(f"{name} must be a CUDA tensor on A's card, got "
-                             f"{t.device}")
-
-
 def _table_fields(name, table: SegmentTable, n: int, O: int, want, tensors):
-    """The table's tensors for ``_check`` and its (idx, mask, lengths, cap)
-    for the C call."""
+    """The table's tensors for ``_build.check`` and its (idx, mask,
+    lengths, cap) for the C call."""
     if table.n != n:
         raise ValueError(f"table {name} has {table.n} segments, want {n}")
     if table.rows is not None:
@@ -104,20 +66,17 @@ def _table_fields(name, table: SegmentTable, n: int, O: int, want, tensors):
     return table.order, None, table.lengths, 0
 
 
-def launch_args(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
-                point_id, fixed_pose_mask, intr_dof_mask, cam: SegmentTable,
-                pt: SegmentTable, intr: SegmentTable, lam: float,
-                cg_iterations: int, cg_tol: float,
-                steps: Optional[torch.Tensor] = None):
-    """The checked arguments of one C call (``schur_pcg``'s arguments):
-    (the ``spcg::Args`` structure, the outputs (dc, dp, di), the
-    workspace, which must outlive the call). Raises ValueError on what
-    the kernel cannot take."""
+def prepare(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
+            point_id, fixed_pose_mask, intr_dof_mask, cam: SegmentTable,
+            pt: SegmentTable, intr: SegmentTable, lam: float,
+            cg_iterations: int, cg_tol: float,
+            steps: Optional[torch.Tensor] = None) -> _build.Call:
+    """The C call of ``schur_pcg`` (same arguments), prepared: the
+    ``spcg::Args`` structure, the workspace and the outputs (dc, dp, di).
+    Raises ValueError on what the kernel cannot take."""
     O, V, L, K = A.shape[0], U.shape[0], Vl.shape[0], Ui.shape[0]
     dtype = A.dtype
-    if dtype not in _DTYPE:
-        raise ValueError(f"A is {dtype}, want float32 or float64")
-    want = {"A": ((O, 2, 6), dtype), "B": ((O, 2, 3), dtype),
+    want = {"A": ((O, 2, 6), tuple(_DTYPE)), "B": ((O, 2, 3), dtype),
             "Ji": ((O, 2, 9), dtype), "w": ((O,), dtype),
             "U": ((V, 6, 6), dtype), "Vl": ((L, 3, 3), dtype),
             "Ui": ((K, 9, 9), dtype), "gc": ((V, 6), dtype),
@@ -138,9 +97,9 @@ def launch_args(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
                                  ("intr", intr, K))]
     if cg_iterations < 0:
         raise ValueError(f"cg_iterations {cg_iterations} < 0")
-    _check(want, tensors)
+    dev = _build.check(**{name: (tensors[name], shape, dt)
+                          for name, (shape, dt) in want.items()})
 
-    dev = A.device
     dc = torch.empty((V, 6), dtype=dtype, device=dev)
     dp = torch.empty((L, 3), dtype=dtype, device=dev)
     di = torch.empty((K, 9), dtype=dtype, device=dev)
@@ -157,20 +116,15 @@ def launch_args(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
     a.lam, a.tol2 = float(lam), float(cg_tol) ** 2
     a.dc, a.dp, a.di, a.steps = dc.data_ptr(), dp.data_ptr(), \
         di.data_ptr(), ptr(steps)
-    code = _DTYPE[dtype][0]
-    work = torch.empty((_lib().r3d_schur_pcg_workspace(code,
-                                                       ctypes.byref(a)),),
+    code, tag = _DTYPE[dtype]
+    lib = _build.load_library(_SOURCE)
+    work = torch.empty((lib.r3d_schur_pcg_workspace(code, ctypes.byref(a)),),
                        dtype=torch.uint8, device=dev)
     a.work = work.data_ptr()
-    return a, (dc, dp, di), work
-
-
-def c_call(a: _Args, dtype, device) -> int:
-    """The C call of ``launch_args``' structure on ``device``'s current
-    stream; returns its cudaError_t."""
-    return _lib().r3d_schur_pcg(_DTYPE[dtype][0], device.index,
-                                ctypes.byref(a),
-                                torch.cuda.current_stream(device).cuda_stream)
+    return _build.Call(lib.r3d_schur_pcg,
+                       (code, dev.index, ctypes.byref(a), _build.stream(dev)),
+                       (a, work, *tensors.values()), (dc, dp, di),
+                       f"schur_pcg_{tag}")
 
 
 def schur_pcg(*args, **kwargs):
@@ -184,11 +138,4 @@ def schur_pcg(*args, **kwargs):
     card that the CG steps run are added to, or None. Returns (dc (V, 6),
     dp (L, 3), di (K, 9)). Raises ValueError on any other input,
     RuntimeError if the launch fails."""
-    a, out, work = launch_args(*args, **kwargs)
-    A = out[0]
-    err = c_call(a, A.dtype, A.device)
-    if err != 0:
-        raise RuntimeError(f"Schur PCG CUDA kernel launch failed (cudaError "
-                           f"{err})")
-    LAUNCHES[f"schur_pcg_{_DTYPE[A.dtype][1]}"] += 1
-    return out
+    return _build.launch(prepare(*args, **kwargs))

@@ -10,26 +10,28 @@ instruction class of ``MIX`` in the SASS that ``cuobjdump -sass`` prints
 (``other`` holds the rest).
 
 With ``--time`` it also loads the built library and, on the card, times
-its C entry point ``r3d_l2_top2`` alone (CUDA events, operands and |b|^2
-made beforehand) on the matcher's main-path shapes: K1 at B = 11, N = 4096
+its C entry point ``r3d_l2_top2`` alone (CUDA events; the call prepared
+beforehand by ``kernels/match.prepare_block``, with the entry of the
+library timed) on the matcher's main-path shapes: K1 at B = 11, N = 4096
 and at B = 200, N = 768 in f32, K1 bf16 and its two ablations at N = 4096,
 P = 64 pairs, D = 144, on unit-norm descriptors drawn from
 ``default_rng(0)``; each result is held against the plain version
 (``kernels/match``) on the same inputs. One JSON line per case, with
 ``torch.bmm`` of the same operands beside it. Then the single-pair call
 (K2) on ``chip_smoke.py`` (c)'s ragged (4000, 144) x (3001, 144) shape in
-f32 and bf16 (every 50th B row masked), timed as all the device work of
-one call (:func:`pair_call`): ``ms`` of that work, ``call_ms`` of the C
-entry alone, ``host_us`` per call of that work issued back to back (and
-``call_host_us`` of the C entry alone; ``*_busy`` with the card kept busy
-by a spin kernel queued ahead, so no launch meets an idle card), and the
-device operations of one call by ``torch.profiler`` with their summed
-time (``device_us``: all the device work of one call); every row says
+f32 and bf16 (every 50th B row masked), through its C entry
+``r3d_l2_top2_pair`` alone, which does all the device work of one call
+(prepared by ``kernels/match.prepare_pair``): ``call_ms``,
+``call_host_us`` per call issued back to back (``call_host_us_busy`` with
+the card kept busy by a spin kernel queued ahead, so no launch meets an
+idle card), and the device operations of one call by ``torch.profiler``
+with their summed time (``device_us``); every row says
 whether its outputs are bit for bit the first source's; and, once per
 case, this tree's own wrapper ``kernels/match.l2_top2`` (``wrapper_ms``,
 ``wrapper_host_us``) and ``torch.mm`` of the operands. Two sources timed
 in one run (``--source A --source B``, in turns A, B, B, A) compare two
-versions of the kernels on one card.
+versions of the kernels on one card; each must have the C interface that
+``kernels/_build.SIGNATURES`` declares.
 
 Run: ``python -m regard3d_tpu_torch.tools.kernel_report [--source FILE]...
 [--time]`` on a machine with the CUDA toolkit (nvcc, cuobjdump); ``--time``
@@ -40,7 +42,6 @@ from __future__ import annotations
 
 import argparse
 import collections
-import ctypes
 import json
 import os
 import time
@@ -86,18 +87,6 @@ CASES = (("k1_f32_n4096", 11, 4096, 0, 0), ("k1_f32_n768", 200, 768, 0, 0),
 PAIRS, DIM = 64, 144
 # (name, M, N, bf16) of the single-pair cases
 PAIR_CASES = (("k2_f32", 4000, 3001, False), ("k2_bf16", 4000, 3001, True))
-# the column ranges that the earlier wrapper, whose library has no cluster
-# entry, split that call into (two blocks an SM on 132 SMs)
-SPLIT_RANGES = 8
-
-
-def _entry(lib: str):
-    fn = ctypes.CDLL(lib).r3d_l2_top2
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5)
-    return fn
-
 
 def _inputs(images: int, rows: int):
     """Unit-norm descriptors, every row valid, and the first 64 pairs of
@@ -114,8 +103,11 @@ def _inputs(images: int, rows: int):
     return desc, mask, torch.tensor((pairs * 2)[:PAIRS], dtype=torch.int32)
 
 
-def _cuda_ms(fn, reps: int = 20) -> float:
-    fn()
+def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
+    """Device milliseconds per call of ``fn`` (CUDA events around ``reps``
+    calls issued back to back, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -127,22 +119,17 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def c_call(fn, desc, mask, pairs, bf16: bool, mode: int = 0):
-    """The block kernel's C call ``fn`` (``r3d_l2_top2``) on ``desc``'s
-    operands, |b|^2 and pair table, made here once, as a function of no
-    arguments that returns its error code; and the (d1, i1, d2) it
-    writes."""
-    ops = match_mod._kernel_operands(desc, bf16)
-    bn = match_mod._bnorm(desc, mask)
-    pd = pairs.to(desc.device)
-    P, (_, N, D) = pairs.shape[0], desc.shape
-    res = [torch.empty((P, N), dtype=t, device=desc.device)
-           for t in (torch.float32, torch.int32, torch.float32)]
-    args = (int(bf16), mode, ops.data_ptr(), ops.data_ptr(), bn.data_ptr(),
-            pd.data_ptr(), P, N, N, D, 1, *(t.data_ptr() for t in res),
-            None, torch.cuda.current_stream(desc.device).cuda_stream)
-    # the operands live as long as the closure
-    return (lambda keep=(ops, bn, pd): fn(*args)), res
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds per call of ``fn`` issued back to back (one
+    synchronize after the timed calls)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def _pair_inputs(M: int, N: int):
@@ -156,68 +143,6 @@ def _pair_inputs(M: int, N: int):
     mask[::50] = False
     return (torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda(),
             torch.from_numpy(mask).cuda())
-
-
-def pair_call(lib: str, a, b, mb, bf16: bool):
-    """All the device work of one single-pair call through library ``lib``
-    as ``(run, call, res)``: ``run()`` issues that work, ``call()`` the C
-    entry alone on inputs made beforehand, ``res`` the (d1, i1, d2) both
-    write. A library with ``r3d_l2_top2_pair`` does all of it in that
-    entry: a fused prologue (|b|^2 under the mask, the bf16 operands) and
-    one cluster launch. One without it takes the earlier wrapper's route:
-    a torch prologue (the bf16 casts, |b|^2 under the mask), then
-    ``r3d_l2_top2`` over ``SPLIT_RANGES`` column ranges, whose merge kernel
-    combines them from a scratch buffer."""
-    handle = ctypes.CDLL(lib)
-    (M, D), N = a.shape, b.shape[0]
-    dev = a.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    res = [torch.empty((M,), dtype=t, device=dev)
-           for t in (torch.float32, torch.int32, torch.float32)]
-    outs = tuple(t.data_ptr() for t in res)
-    if hasattr(handle, "r3d_l2_top2_pair"):
-        fn = match_mod._pair_entry(handle)
-        rnd = bf16 and a.dtype == torch.float32
-        ranks = match_mod.plan(dev, bf16 or a.dtype == torch.bfloat16, 1, M,
-                               N, D)[0]
-        work = torch.empty((handle.r3d_l2_top2_pair_workspace(M, N, D,
-                                                              int(rnd)),),
-                           dtype=torch.uint8, device=dev)
-        args = (int(a.dtype == torch.bfloat16), int(rnd), a.data_ptr(),
-                b.data_ptr(), mb.data_ptr(), M, N, D, ranks,
-                work.data_ptr(), *outs, stream)
-        # the closure keeps the workspace and the outputs alive
-        call = lambda keep=(work, res): fn(*args)
-        return call, call, res
-    fn = _entry(lib)
-    pairs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    part = torch.empty(((3 * SPLIT_RANGES + 1) * M,), device=dev)
-
-    def prologue():
-        ops = [t.to(torch.bfloat16) if bf16 else t for t in (a, b)]
-        bn = torch.where(mb, torch.sum(b.float() ** 2, -1), match_mod._BIG)
-        return ops, bn
-
-    def c_entry(ops, bn):
-        return fn(int(bf16), 0, ops[0].data_ptr(), ops[1].data_ptr(),
-                  bn.data_ptr(), pairs.data_ptr(), 1, M, N, D, SPLIT_RANGES,
-                  *outs, part.data_ptr(), stream)
-    made = prologue()
-    return ((lambda keep=res: c_entry(*prologue())),
-            (lambda keep=res: c_entry(*made)), res)
-
-
-def _host_us(fn, reps: int = 50) -> float:
-    """Host microseconds per call of ``fn`` issued back to back (one
-    synchronize after the timed calls)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / reps * 1e6
 
 
 MARKER = "spin_kernel"      # torch.cuda._sleep's kernel
@@ -273,7 +198,7 @@ def device_ops(fn, calls: int = 5,
 
 
 def _host_us_busy(fn, reps: int = 50) -> float:
-    """:func:`_host_us` with the card kept busy: a spin kernel long enough
+    """:func:`host_us` with the card kept busy: a spin kernel long enough
     to outlast the timed calls is queued ahead of them, so no launch meets
     an idle card."""
     fn()
@@ -287,39 +212,49 @@ def _host_us_busy(fn, reps: int = 50) -> float:
     return dt / reps * 1e6
 
 
-def time_pair_cases(libs: List[str]) -> List[dict]:
-    """The single-pair cases on each library in turns, as in
+def _on_source(prepared, source: str):
+    """``prepared`` (a ``_build.Call`` of this tree) with the same C entry
+    of the library built from ``source`` and its outputs as a tuple; the
+    call made once (it must succeed)."""
+    lib = _build.load_library(source)
+    out = prepared.out if isinstance(prepared.out, tuple) else (prepared.out,)
+    p = prepared._replace(entry=getattr(lib, prepared.entry.__name__),
+                          out=out)
+    _build.call_entry(p.entry, *p.args)
+    torch.cuda.synchronize()
+    return p
+
+
+def time_pair_cases(sources: List[str]) -> List[dict]:
+    """The single-pair cases on each source's library in turns, as in
     :func:`time_cases`; per case also this tree's wrapper and
     ``torch.mm``."""
-    order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    order = list(range(len(sources))) + list(reversed(range(len(sources))))
     out = []
     for name, M, N, bf16 in PAIR_CASES:
         a, b, mb = _pair_inputs(M, N)
         want = match_mod.l2_top2_plain(a, b, mb, bf16)
         ops = [t.to(torch.bfloat16) if bf16 else t for t in (a, b)]
         wrap = lambda: match_mod.l2_top2(a, b, mb, bf16=bf16)
-        head = {"case": name, "wrapper_ms": _cuda_ms(wrap),
-                "wrapper_host_us": _host_us(wrap),
+        head = {"case": name, "wrapper_ms": cuda_ms(wrap),
+                "wrapper_host_us": host_us(wrap),
                 "wrapper_host_us_busy": _host_us_busy(wrap),
-                "mm_ms": _cuda_ms(lambda: torch.mm(ops[0], ops[1].t()))}
+                "mm_ms": cuda_ms(lambda: torch.mm(ops[0], ops[1].t()))}
         print(json.dumps(head), flush=True)
-        calls = [pair_call(lib, a, b, mb, bf16) for lib in libs]
+        calls = [_on_source(match_mod.prepare_pair(a, b, mb, bf16), src)
+                 for src in sources]
         for turn, k in enumerate(order):
-            run, call, res = calls[k]
-            if run() != 0:
-                raise RuntimeError(f"{libs[k]}: launch failed")
-            torch.cuda.synchronize()
-            ops = device_ops(run)
-            row = {"case": name, "source": libs[k], "turn": turn,
-                   "ms": _cuda_ms(run), "call_ms": _cuda_ms(call),
-                   "host_us": _host_us(run), "call_host_us": _host_us(call),
+            call, res = calls[k].c_call, calls[k].out
+            ops = device_ops(call)
+            row = {"case": name, "source": sources[k], "turn": turn,
+                   "call_ms": cuda_ms(call), "call_host_us": host_us(call),
                    "call_host_us_busy": _host_us_busy(call),
                    "device_ops": len(ops),
                    "device_us": sum(us for _, us in ops),
                    "ops": [[n[:60], us] for n, us in ops],
                    "max_abs_err_d1": float((res[0] - want[0]).abs().max()),
                    "i1_agree": float((res[1] == want[1]).float().mean()),
-                   "identical_to_first": _identical(res, calls[0][2], 3)}
+                   "identical_to_first": _identical(res, calls[0].out, 3)}
             print(json.dumps(row), flush=True)
             out.append(row)
     return out
@@ -332,18 +267,20 @@ def _identical(res, first, n: int) -> bool:
     return all(torch.equal(x, y) for x, y in zip(res[:n], first[:n]))
 
 
-def time_cases(libs: List[str]) -> List[dict]:
-    """Each case on each library (in turns: first, second, ..., then back),
-    the C call alone, against the plain version and ``torch.bmm``."""
+def time_cases(sources: List[str]) -> List[dict]:
+    """Each case on each source's library (in turns: first, second, ...,
+    then back), the C call alone, against the plain version and
+    ``torch.bmm``."""
     if not torch.cuda.is_available():
         raise RuntimeError("--time needs a CUDA card")
-    fns = [_entry(lib) for lib in libs]
-    order = list(range(len(libs))) + list(reversed(range(len(libs))))
+    order = list(range(len(sources))) + list(reversed(range(len(sources))))
     out = []
     for name, images, rows, dtype, mode in CASES:
         desc, mask, pairs = _inputs(images, rows)
         bf16 = dtype == 1
-        calls = [c_call(fn, desc, mask, pairs, bf16, mode) for fn in fns]
+        calls = [_on_source(match_mod.prepare_block(
+            desc, mask, pairs, bf16, ("full", *match_mod.ABLATIONS)[mode]),
+            src) for src in sources]
         if mode == 0:
             want = match_mod.l2_top2_block_plain(desc, mask, pairs, bf16)
         else:
@@ -352,20 +289,17 @@ def time_cases(libs: List[str]) -> List[dict]:
         pl = pairs.long().cuda()
         ops = match_mod._kernel_operands(desc, bf16)
         ga, gb = ops[pl[:, 0]], ops[pl[:, 1]]
-        bmm_ms = _cuda_ms(lambda: torch.bmm(ga, gb.transpose(1, 2)))
+        bmm_ms = cuda_ms(lambda: torch.bmm(ga, gb.transpose(1, 2)))
         for turn, k in enumerate(order):
-            run, res = calls[k]
-            if run() != 0:
-                raise RuntimeError(f"{libs[k]}: launch failed")
-            torch.cuda.synchronize()
+            res = calls[k].out
             err = float((res[0] - want[0]).abs().max())
             same = (float((res[1] == want[1]).float().mean())
                     if mode == 0 else None)
-            row = {"case": name, "source": libs[k], "turn": turn,
-                   "ms": _cuda_ms(run),
+            row = {"case": name, "source": sources[k], "turn": turn,
+                   "ms": cuda_ms(calls[k].c_call),
                    "bmm_ms": bmm_ms, "max_abs_err_d1": err,
                    "i1_agree": same,
-                   "identical_to_first": _identical(res, calls[0][1],
+                   "identical_to_first": _identical(res, calls[0].out,
                                                     1 if mode else 3)}
             print(json.dumps(row), flush=True)
             out.append(row)
@@ -380,14 +314,12 @@ def main(argv=None):
                     help="time the C entry point of each source on the card")
     args = ap.parse_args(argv)
     sources = args.source or [os.path.join(_build.CSRC, "match_top2.cu")]
-    libs = []
     for src in sources:
         for name, row in report(src).items():
             print(json.dumps({"source": src, "kernel": name, **row}))
-        libs.append(_build.library_path(src, _build.NVCC_FLAGS))
     if not args.time:
         return None
-    return time_cases(libs) + time_pair_cases(libs)
+    return time_cases(sources) + time_pair_cases(sources)
 
 
 if __name__ == "__main__":

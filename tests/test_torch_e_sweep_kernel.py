@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from regard3d_tpu_torch.kernels import ransac
+from regard3d_tpu_torch.kernels import _build, ransac
 
 pytestmark = pytest.mark.card
 
@@ -104,10 +104,10 @@ def test_candidates_match_plain(dev, kind, dtype, tol, share, ok_share):
         x1, x2 = rng.normal(size=(2, S, 5, 2)) * 0.5
     t1 = torch.tensor(x1, dtype=dtype, device=dev)
     t2 = torch.tensor(x2, dtype=dtype, device=dev)
-    before = ransac.LAUNCHES[f"e_solve_{ransac._E_DTYPE[dtype][1]}"]
+    before = _build.LAUNCHES[f"e_solve_{ransac._E_DTYPE[dtype][1]}"]
     Ek, okk = ransac.essential_5pt(t1, t2)
     torch.cuda.synchronize()
-    assert ransac.LAUNCHES[f"e_solve_{ransac._E_DTYPE[dtype][1]}"] \
+    assert _build.LAUNCHES[f"e_solve_{ransac._E_DTYPE[dtype][1]}"] \
         == before + 1
     from regard3d_tpu_torch.kernels import geometry
     Ep, okp = geometry.fit_essential_5pt(t1, t2)
@@ -135,10 +135,10 @@ def _sweep_pair(dev, P, cap, iters, dtype, seed, noise=0.0):
     me = torch.full((P,), (4.0 / 1000.0) ** 2, dtype=dtype, device=dev)
     idx = _draws(mask, iters, seed).to(dev)
     tag = f"e_sweep_{ransac._E_DTYPE[dtype][1]}"
-    before = ransac.LAUNCHES[tag]
+    before = _build.LAUNCHES[tag]
     kern = ransac.e_sweep(x1t, x2t, mt, me, idx)
     torch.cuda.synchronize()
-    assert ransac.LAUNCHES[tag] == before + 1
+    assert _build.LAUNCHES[tag] == before + 1
     plain = ransac.e_sweep_plain(x1t, x2t, mt, me, idx)
     moved = ransac.e_sweep_plain(t(x1 * (1 + 1e-7 * rng.normal(
         size=x1.shape))), x2t, mt, me, idx)
@@ -277,9 +277,9 @@ def test_acransac_e_batch_inliers_match_plain(dev):
     idx = _draws(mask, iters, 21).to(dev)
     run = lambda a: ransac.acransac_e_batch(None, t(a), t(x2), mt, la, me,
                                             iters=iters, idx=idx)
-    before = ransac.LAUNCHES["e_sweep_f32"]
+    before = _build.LAUNCHES["e_sweep_f32"]
     got = run(x1)
-    assert ransac.LAUNCHES["e_sweep_f32"] == before + 1
+    assert _build.LAUNCHES["e_sweep_f32"] == before + 1
     plain = ransac.e_sweep
     try:
         ransac.e_sweep = ransac.e_sweep_plain

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from regard3d_tpu.kernels import match as jm
+from regard3d_tpu_torch.kernels import _build
 from regard3d_tpu_torch.kernels import match as tm
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -190,10 +191,10 @@ def test_match_pairs_batched_vs_reference(rng, masked):
     ij, dj, okj = jm.match_pairs_batched(
         jnp.asarray(A), jnp.asarray(ma), jnp.asarray(B), jnp.asarray(mb),
         0.8, False, 128, 128)
-    before = dict(tm.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     it, dt, okt = tm.match_pairs_batched(torch.tensor(A), torch.tensor(ma),
                                          torch.tensor(B), torch.tensor(mb))
-    assert tm.LAUNCHES == before and it.shape == (P, m)
+    assert _build.LAUNCHES == before and it.shape == (P, m)
     np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), rtol=RTOL,
@@ -394,7 +395,7 @@ def test_mutual_filter(rng):
 def test_wrappers_take_plain_version_only_on_cpu(rng):
     """A CPU tensor runs the plain version and counts no kernel launch."""
     desc, mask, pairs = _block_inputs(rng)
-    before = dict(tm.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     tm.l2_top2_block(torch.tensor(desc), torch.tensor(mask),
                      torch.tensor(pairs))
     tm.l2_top2(torch.tensor(desc[0]), torch.tensor(desc[1]),
@@ -402,7 +403,7 @@ def test_wrappers_take_plain_version_only_on_cpu(rng):
     for mode in tm.ABLATIONS:
         tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
                                  torch.tensor(pairs), mode)
-    assert tm.LAUNCHES == before
+    assert _build.LAUNCHES == before
     with pytest.raises(ValueError, match="mode"):
         tm.l2_top2_block_ablated(torch.tensor(desc), torch.tensor(mask),
                                  torch.tensor(pairs), "full")
@@ -434,8 +435,10 @@ def test_kernel_operands_the_tensor_maps_cannot_take_are_rejected(
     if case == "row_stride_not_16_bytes":      # rows 20 floats apart
         t = _flat((2, 8, 20), dtype)[..., :16]
     assert tm.MAX_BF16_DIM == 288
+    bnorm = torch.zeros(shape[:2])
+    pairs = torch.tensor([[0, 1]], dtype=torch.int32)
     with pytest.raises((ValueError, TypeError), match=match):
-        tm._check_desc("desc", t)
+        tm._block_call(t, t, bnorm, pairs)
 
 
 def test_host_pairs_checks_the_table():

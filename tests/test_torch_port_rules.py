@@ -27,9 +27,11 @@ from regard3d_tpu_torch.ba import lm as tlm
 from regard3d_tpu_torch.ba import sharded as tsh
 from regard3d_tpu_torch.core.types import Scene
 from regard3d_tpu_torch.export import formats as tfmt
+from regard3d_tpu_torch.kernels import _build
 from regard3d_tpu_torch.kernels import geometry as tgeo
 from regard3d_tpu_torch.kernels import match as tm
 from regard3d_tpu_torch.kernels import ransac as tr
+from regard3d_tpu_torch.kernels import schur_pcg
 from regard3d_tpu_torch.mvs import driver as tdrv
 from regard3d_tpu_torch.pipeline import compute_matches as tcm
 from regard3d_tpu_torch.pipeline import features as tfeat
@@ -274,11 +276,11 @@ def test_kernel_wrappers_never_fall_back(rng):
     bnorm = torch.zeros((2, 32))
     pairs = torch.tensor([[0, 1]], dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
-        tm._launch(desc, desc, bnorm, pairs)
-    before = dict(tm.LAUNCHES)
+        tm._block_call(desc, desc, bnorm, pairs)
+    before = dict(_build.LAUNCHES)
     d1, i1, d2 = tm.l2_top2_block(desc, torch.ones((2, 32), dtype=bool),
                                   pairs)
-    assert tm.LAUNCHES == before and d1.shape == (1, 32)
+    assert _build.LAUNCHES == before and d1.shape == (1, 32)
 
 
 def _e_inputs(rng, P=2, n=24, iters=8, dtype=torch.float32):
@@ -297,7 +299,7 @@ def test_e_sweep_wrappers_take_the_plain_sweep_on_the_cpu(rng, dtype):
     """The E-sweep wrappers on CPU tensors return the plain versions'
     numbers and launch nothing."""
     x1, x2, mask, me, idx = _e_inputs(rng, dtype=dtype)
-    before = dict(tr.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     got = tr.e_sweep(x1, x2, mask, me, idx)
     want = tr.e_sweep_plain(x1, x2, mask, me, idx)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -307,7 +309,7 @@ def test_e_sweep_wrappers_take_the_plain_sweep_on_the_cpu(rng, dtype):
     E, ok = tr.essential_5pt(s1, s2)
     Ep, okp = tgeo.fit_essential_5pt(s1, s2)
     assert torch.equal(E, Ep) and torch.equal(ok, okp)
-    assert tr.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def _gather(x, idx):
@@ -336,11 +338,72 @@ def test_e_sweep_launch_refuses_what_it_cannot_take(rng, case):
             "layout": "contiguous", "shape": "shapes",
             "index_dtype": "int64"}[case]
     with pytest.raises(ValueError, match=want):
-        tr._e_sweep_launch(x1, x2, mask, me, idx)
+        tr.prepare_e_sweep(x1, x2, mask, me, idx)
     if case in ("cpu", "dtype"):
         s = _gather(x1, idx)
         with pytest.raises(ValueError, match=want):
-            tr._check_on_card(x1=s, x2=s)
+            tr.prepare_e_solve(s, s)
+
+
+class _FailingLibrary:
+    """A kernel library whose C entries fail with cudaError 719 (a launch
+    failure) and whose workspace queries ask for 16 bytes."""
+
+    def __getattr__(self, name):
+        def entry(*args):
+            return 16 if name.endswith("_workspace") else 719
+        entry.__name__ = name
+        return entry
+
+
+def _pcg_args():
+    """A small Schur PCG problem on the CPU: 12 observations of 4 points in
+    3 views, one intrinsic group; zero blocks."""
+    O, V, L, K = 12, 3, 4, 1
+    vid, pid = torch.arange(O) % V, torch.arange(O) % L
+    iid = torch.zeros(O, dtype=torch.int64)
+    obs = tlm.BAObservations(vid, iid, pid, None, None, torch.ones(O))
+    lay = tlm.make_layout(obs, V, L, K)
+    z = lambda *shape: torch.zeros(shape)
+    return (z(O, 2, 6), z(O, 2, 3), z(O, 2, 9), z(O), z(V, 6, 6),
+            z(L, 3, 3), z(K, 9, 9), z(V, 6), z(L, 3), z(K, 9), vid, iid, pid,
+            torch.zeros(V, dtype=torch.bool),
+            torch.ones((K, 9), dtype=torch.bool), lay.cam, lay.pt, lay.intr,
+            1e-3, 40, 1e-6)
+
+
+@pytest.mark.parametrize("kernel,entry,first", [
+    ("k1", "r3d_l2_top2", "desc_a"), ("e_sweep", "r3d_e_sweep", "x1n"),
+    ("pcg", "r3d_schur_pcg", "A")])
+def test_the_seam_refuses_cpu_tensors_and_raises_on_a_failed_launch(
+        rng, monkeypatch, kernel, entry, first):
+    """Every kernel is called through ``kernels/_build``: its prepare
+    refuses a CPU tensor with ValueError naming the argument; with the C
+    entry stubbed to return a cudaError (and the device check passed by),
+    ``launch`` raises RuntimeError naming the entry and the error and
+    counts nothing."""
+    if kernel == "k1":
+        desc = torch.tensor(rng.normal(size=(2, 32, 16)).astype(np.float32))
+        prepare = lambda: tm.prepare_block(
+            desc, torch.ones((2, 32), dtype=torch.bool),
+            torch.tensor([[0, 1]]))
+    elif kernel == "e_sweep":
+        args = _e_inputs(rng)
+        prepare = lambda: tr.prepare_e_sweep(*args)
+    else:
+        args = _pcg_args()
+        prepare = lambda: schur_pcg.prepare(*args)
+    with pytest.raises(ValueError, match=f"{first} must be a CUDA tensor"):
+        prepare()
+    monkeypatch.setattr(_build, "load_library",
+                        lambda source: _FailingLibrary())
+    monkeypatch.setattr(_build, "check", lambda **want: torch.device("cpu"))
+    monkeypatch.setattr(_build, "stream", lambda dev: 0)
+    monkeypatch.setattr(tm, "plan", lambda *args: (1, 1))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match=f"{entry} failed .cudaError 719"):
+        _build.launch(prepare())
+    assert _build.LAUNCHES == before
 
 
 def test_runtime_numerics_and_build_dir():

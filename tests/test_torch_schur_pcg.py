@@ -25,7 +25,7 @@ from regard3d_tpu_torch.ba import lm
 from regard3d_tpu_torch.ba import sharded
 from regard3d_tpu_torch.core import cameras as cam
 from regard3d_tpu_torch.core.types import PINHOLE, RADIAL_K3
-from regard3d_tpu_torch.kernels import schur_pcg
+from regard3d_tpu_torch.kernels import _build, schur_pcg
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -137,7 +137,7 @@ def test_cpu_tensors_take_the_plain_solve(small):
     state, obs, fixed, prior = small
     opts = lm.BAOptions(max_iterations=3, refine_intrinsics=True,
                         huber_delta_px=2.0, center_prior_weight=0.5)
-    before = dict(schur_pcg.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     imask = lm.intr_mask_of(obs, 1, True)
     new = lm.lm_trial(state, 1e-3, obs, opts, fixed, imask, prior)
     nb, layout, _ = solve_inputs(state, obs, opts, fixed, prior)
@@ -151,7 +151,7 @@ def test_cpu_tensors_take_the_plain_solve(small):
     summary = c.summary()
     assert "pcg_steps" not in summary["triangulation.ba"]
     assert "pcg_kernel" not in summary["triangulation.ba.trial"]
-    assert schur_pcg.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 def test_only_unsharded_card_tensors_take_the_kernel():
@@ -247,13 +247,13 @@ def test_schur_pcg_refuses_what_it_cannot_take(small, case):
     elif case == "table":
         args[16] = layout.cam          # 5 segments for the 40 points
     want = {"cpu": "CUDA", "dtype": "float32 or float64",
-            "mixed_dtype": "want torch.float32", "index_dtype": "int64",
+            "mixed_dtype": "want float32", "index_dtype": "int64",
             "shape": "shape", "layout": "contiguous",
             "table": "segments"}[case]
-    before = dict(schur_pcg.LAUNCHES)
+    before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match=want):
         schur_pcg.schur_pcg(*args, 1e-3, 40, 1e-6)
-    assert schur_pcg.LAUNCHES == before
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("form", ["padded", "sorted"])

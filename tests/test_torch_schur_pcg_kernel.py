@@ -36,7 +36,7 @@ import torch
 from regard3d_tpu_torch import spans
 from regard3d_tpu_torch.ba import lm
 from regard3d_tpu_torch.core.types import PINHOLE, RADIAL_K3
-from regard3d_tpu_torch.kernels import schur_pcg
+from regard3d_tpu_torch.kernels import _build
 from tests.test_torch_schur_pcg import ba_problem, solve_inputs
 
 pytestmark = pytest.mark.card
@@ -94,10 +94,10 @@ def test_kernel_matches_plain_solve(dev, case, dtype, form):
                                                          form)
     want = lm._solve_schur(nb, obs, 1.0, state, opts, fixed, imask, layout)
     tag = "f32" if dtype == torch.float32 else "f64"
-    before = schur_pcg.LAUNCHES[f"schur_pcg_{tag}"]
+    before = _build.LAUNCHES[f"schur_pcg_{tag}"]
     got = _kernel(nb, obs, opts, fixed, imask, layout, lam=1.0)
     again = _kernel(nb, obs, opts, fixed, imask, layout, lam=1.0)
-    assert schur_pcg.LAUNCHES[f"schur_pcg_{tag}"] == before + 2
+    assert _build.LAUNCHES[f"schur_pcg_{tag}"] == before + 2
     assert all(g.dtype == dtype and g.shape == w.shape
                for g, w in zip(got, want))
     err = _rel_err(got, want)
@@ -177,12 +177,12 @@ def test_bundle_adjust_reaches_the_plain_cost(dev, case, monkeypatch):
     kw, okw = CASES[case]
     state, obs, fixed, prior = ba_problem(device=dev, **kw)
     opts = lm.BAOptions(max_iterations=40, **okw)
-    before = schur_pcg.LAUNCHES["schur_pcg_f32"]
+    before = _build.LAUNCHES["schur_pcg_f32"]
     with spans.collect() as c, spans.span("triangulation.ba"):
         out, st = lm.bundle_adjust(state, obs, opts, fixed_pose_mask=fixed,
                                    center_prior=prior, device=dev)
     summary = c.summary()
-    assert schur_pcg.LAUNCHES["schur_pcg_f32"] == before + st.iterations
+    assert _build.LAUNCHES["schur_pcg_f32"] == before + st.iterations
     assert summary["triangulation.ba.trial"]["pcg_kernel"] == st.iterations
     steps = summary["triangulation.ba"]["pcg_steps"]
     assert st.iterations <= steps <= 40 * st.iterations
@@ -190,7 +190,7 @@ def test_bundle_adjust_reaches_the_plain_cost(dev, case, monkeypatch):
         m.setattr(lm, "_pcg_on_card", lambda x, cr, pr: False)
         _, sp = lm.bundle_adjust(state, obs, opts, fixed_pose_mask=fixed,
                                  center_prior=prior, device=dev)
-    assert schur_pcg.LAUNCHES["schur_pcg_f32"] == before + st.iterations
+    assert _build.LAUNCHES["schur_pcg_f32"] == before + st.iterations
     assert st.final_cost == pytest.approx(sp.final_cost, rel=1e-3)
     assert st.final_cost < st.initial_cost
     assert torch.equal(out.R[fixed], state.R[fixed])
