@@ -17,8 +17,9 @@ run if it fails:
     ranks each dtype's FULL kernel can hold at once
     (``cudaOccupancyMaxActiveClusters``) and fail unless its 4000-row
     call's clusters fit in one wave; print the E-sweep kernels' registers,
-    spills and local memory (``csrc/essential5.cu``) and the Schur PCG
-    kernel's (``csrc/schur_pcg.cu``);
+    spills and local memory (``csrc/essential5.cu``), the Schur PCG
+    kernel's (``csrc/schur_pcg.cu``) and the BA linearisation and cost
+    kernels' (``csrc/ba_linearize.cu``);
 (b) drive the port's compute-matches stage through its library entry point,
     ``regard3d_tpu_torch.pipeline.compute_matches.run_compute_matches``, on
     the synthetic fountain scene (11 views at 1024x1024, 55 exhaustive
@@ -65,7 +66,13 @@ run if it fails:
     where the CG converges (lam = 1), within four times the plain solve's
     own spread between its table forms through 40 unconverged steps,
     the same bits twice, its time through the wrapper, as its C call and
-    at 0 CG steps, the plain solve's and its bound;
+    at 0 CG steps, the plain solve's and its bound; BA's linearisation and
+    cost kernels at the same shapes (Huber 2 px) against
+    ``lm._normal_blocks`` and ``lm.compute_cost``: each row's blocks
+    within 1e-5 of its largest entry, the block sums within 1e-4 of the
+    sums of their terms' absolute values, the cost within 1e-5, the same
+    bits twice, each one's time through the wrapper and as its C call, the
+    plain versions' and the bound;
 (e) where the time goes: the stage again on its first 4 views (6 pairs),
     warm, once on the host clock and once under ``torch.profiler``; per
     phase (the stage's own profiler
@@ -84,8 +91,8 @@ run if it fails:
     0.08, the median residual < 1 px, ``scene.npz`` loads back,
     ``sfm_data.json`` holds 11 extrinsics and one structure entry per live
     track, both PLYs read back, two ``bundle_adjust`` calls on the final
-    state give bit-identical states, and BA's solve went through the
-    Schur PCG kernel. The run is under ``torch.profiler``:
+    state give bit-identical states, and BA's linearisation, solve and
+    cost reads went through their kernels. The run is under ``torch.profiler``:
     per engine span (``triangulation.<phase>``) the host time, the device's
     busy time and idle share and the number of device operations. One
     ``sfm`` JSON line;
@@ -334,7 +341,7 @@ def phase_build():
     from regard3d_tpu_torch import native
     from regard3d_tpu_torch.kernels import _build
     from regard3d_tpu_torch.kernels import match as match_mod
-    from regard3d_tpu_torch.kernels import ransac, schur_pcg
+    from regard3d_tpu_torch.kernels import ba_linearize, ransac, schur_pcg
     from regard3d_tpu_torch.tools import kernel_report
     t0 = time.time()
     # nvcc and g++ side by side: the matcher's kernels, the E sweep's and
@@ -344,6 +351,7 @@ def phase_build():
         host = pool.submit(native.build)
         e_lib = pool.submit(_build.build, ransac._E_SOURCE)
         s_lib = pool.submit(_build.build, schur_pcg._SOURCE)
+        b_lib = pool.submit(_build.build, ba_linearize._SOURCE)
         lib = _build.build(match_mod._SOURCE)
         log(f"(a) built {match_mod._SOURCE} in {time.time() - t0:.1f} s")
         log(f"(a) built {os.path.basename(host.result())} from "
@@ -352,6 +360,8 @@ def phase_build():
         log(f"(a) built {ransac._E_SOURCE} in {time.time() - t0:.1f} s")
         s_lib = s_lib.result()
         log(f"(a) built {schur_pcg._SOURCE} in {time.time() - t0:.1f} s")
+        b_lib = b_lib.result()
+        log(f"(a) built {ba_linearize._SOURCE} in {time.time() - t0:.1f} s")
     usage = _build.ptxas_usage(_build.build_log(lib))
     for name, ops in sorted(_build.sass_opcodes(lib).items()):
         log(f"(a) {name}: {usage.get(name)}; SASS "
@@ -371,12 +381,13 @@ def phase_build():
         check(e_usage.get(name, {}).get("registers", 0) > 0,
               f"ptxas reported no {name}")
     usage.update(e_usage)
-    s_usage = _build.ptxas_usage(_build.build_log(s_lib))
-    for name in S_KERNELS:
-        log(f"(a) {name}: {s_usage.get(name)}")
-        check(s_usage.get(name, {}).get("registers", 0) > 0,
-              f"ptxas reported no {name}")
-    usage.update(s_usage)
+    for lib_, names in ((s_lib, S_KERNELS), (b_lib, B_KERNELS)):
+        s_usage = _build.ptxas_usage(_build.build_log(lib_))
+        for name in names:
+            log(f"(a) {name}: {s_usage.get(name)}")
+            check(s_usage.get(name, {}).get("registers", 0) > 0,
+                  f"ptxas reported no {name}")
+        usage.update(s_usage)
     for name in ("l2_top2_f32_kernel", "l2_top2_wgmma_kernel<0,144,4>",
                  "l2_top2_prep_kernel"):
         u = usage.get(name, {})
@@ -547,7 +558,8 @@ ROW_PATH = {"l2_top2_block_f32": "stage", "l2_top2_block_bf16": "flann",
             "l2_top2_f32": "stage", "l2_top2_bf16": "stage",
             "l2_top2_block_mm_only_bf16": "profile",
             "l2_top2_block_min_only_bf16": "profile",
-            "e_sweep_f32": "stage", "schur_pcg_f32": "sfm"}
+            "e_sweep_f32": "stage", "schur_pcg_f32": "sfm",
+            "ba_linearize_f32": "sfm", "ba_cost_f32": "sfm"}
 K1 = "regard3d_tpu/kernels/match.py:246"
 K2 = "regard3d_tpu/kernels/match.py:151"
 K3 = "tools/profile_matcher.py:86"
@@ -573,6 +585,17 @@ S_REPLACES = ("none: the reference's CG was XLA's compiled lax.while_loop, "
 # ids: 172 a row in float32) at the HBM rate, though they stay in L2
 S_SHAPE = {"V": 11, "L": 4482, "per_point": 4, "K": 1, "cg_iterations": 40}
 S_BARRIERS, S_BARRIER_S, S_ROW_BYTES = 3, 1.1e-6, 172
+B_KERNELS = ("ba_linearize_kernel<float>", "ba_cost_kernel<float>",
+             "ba_linearize_kernel<double>", "ba_cost_kernel<double>")
+B_REPLACES = ("none: the reference's linearisation was XLA's fused "
+              "vmap(jacfwd), regard3d_tpu/ba/lm.py:_res_and_jac")
+# (c) the linearisation and the cost read at S_SHAPE, Huber 2 px. Their
+# bound (csrc/ba_linearize.cu's note): every input and output byte once at
+# the HBM rate (a row reads xy, weight and four int64 ids, 44 bytes in
+# float32, and writes r, A, B, Ji, w, 156; the cost reads the 44; the
+# state's rows once) plus the grid barriers (two; the cost's one) at
+# S_BARRIER_S each
+B_ROW_IN, B_ROW_OUT = 44, 156
 
 
 # the kernel instance each row launches (ptxas's name, template arguments
@@ -584,7 +607,9 @@ ROW_KERNEL = {"l2_top2_block_f32": "l2_top2_f32_kernel",
               "l2_top2_block_mm_only_bf16": "l2_top2_wgmma_kernel<1,144,",
               "l2_top2_block_min_only_bf16": "l2_top2_wgmma_kernel<2,144,",
               "e_sweep_f32": "e_sweep_kernel<float>",
-              "schur_pcg_f32": "schur_pcg_kernel<float>"}
+              "schur_pcg_f32": "schur_pcg_kernel<float>",
+              "ba_linearize_f32": "ba_linearize_kernel<float>",
+              "ba_cost_f32": "ba_cost_kernel<float>"}
 
 
 def row_usage(usage, name):
@@ -1167,6 +1192,95 @@ def phase_schur_pcg(usage):
         f"1 {max(rel_1)}); repeat the same bits {same}; {row['regs']} "
         f"registers, {row['spills']} spilled bytes")
     return row
+
+
+def phase_ba_linearize(usage):
+    """(c) the linearisation and cost kernels (``csrc/ba_linearize.cu``)
+    against the plain ``lm._build_blocks`` / ``_normal_blocks`` and
+    ``lm.compute_cost`` on the card at S_SHAPE (radial-K3, intrinsics
+    refined, Huber 2 px): each row's blocks within 1e-5 of its largest
+    entry (the residual: of the observed pixel's), the block sums within
+    1e-4 of the sums of their terms' absolute values, the cost within 1e-5
+    (the card tests' limits); the same bits in a second call; each kernel's
+    time through the wrapper and as its C call alone (CUDA events), the
+    plain versions' and the bound (B_ROW_IN + B_ROW_OUT bytes a row and
+    the barriers); registers and spills from (a). Returns the two rows."""
+    from regard3d_tpu_torch.ba import lm
+    from regard3d_tpu_torch.kernels import ba_linearize
+    from tests.test_torch_ba_linearize_kernel import _abs_sums, _row_err
+    state, obs, _ = s_problem()
+    opts = lm.BAOptions(refine_intrinsics=True, huber_delta_px=2.0)
+    V, L, K = S_SHAPE["V"], S_SHAPE["L"], S_SHAPE["K"]
+    O = obs.view_id.shape[0]
+    layout = lm.make_layout(obs, V, L, K)
+    args = (*state, *obs)
+    before = dict(LAUNCHES)
+    got = ba_linearize.linearize(*args, *layout, opts.huber_delta_px)
+    again = ba_linearize.linearize(*args, *layout, opts.huber_delta_px)
+    cost = ba_linearize.cost(*args, opts.huber_delta_px)
+    cost2 = ba_linearize.cost(*args, opts.huber_delta_px)
+    n = launches_since(before)
+    check(n["ba_linearize_f32"] == 2 and n["ba_cost_f32"] == 2,
+          f"the BA kernels were not launched once a call: {n}")
+    same = (all(torch.equal(a, b) for a, b in zip(got, again))
+            and torch.equal(cost, cost2))
+    check(same, "BA linearisation or cost: two calls differ")
+    blocks = lm._build_blocks(state, obs, opts)
+    nb = lm._normal_blocks(state, obs, opts, layout)
+    row_err = {k: _row_err(g, w, obs.xy if k == "r" else None)
+               for k, g, w in zip(("r", "A", "B", "Ji"), got, blocks)}
+    sum_err = {k: float(((g - w).abs() / s.clamp_min(1e-30)).max())
+               for k, g, w, s in zip(
+                   ("U", "Vl", "Ui", "gc", "gp", "gi"), got[5:],
+                   (nb.U, nb.Vl, nb.Ui, nb.gc, nb.gp, nb.gi),
+                   _abs_sums(*got[:5], layout))}
+    want_cost = lm.compute_cost(state, obs, opts)
+    cost_err = float(abs(cost - want_cost) / want_cost)
+    check(max(row_err.values()) <= 1e-5 and max(sum_err.values()) <= 1e-4
+          and cost_err <= 1e-5, f"BA linearisation off the plain version: "
+          f"rows {row_err}, sums {sum_err}, cost {cost_err}")
+    state_bytes = 4 * (V * 12 + K * 9 + L * 3)
+    sums_bytes = 4 * (V * 42 + K * 90 + L * 12)
+    rows = []
+    for name, run, plain, prep, nbytes, barriers in (
+            ("ba_linearize_f32",
+             lambda: lm._normal_blocks_kernel(state, obs, opts, layout),
+             lambda: lm._normal_blocks(state, obs, opts, layout),
+             ba_linearize.prepare_linearize(*args, *layout, 2.0),
+             O * (B_ROW_IN + B_ROW_OUT) + state_bytes + sums_bytes, 2),
+            ("ba_cost_f32",
+             lambda: ba_linearize.cost(*args, 2.0),
+             lambda: lm.compute_cost(state, obs, opts),
+             ba_linearize.prepare_cost(*args, 2.0),
+             O * B_ROW_IN + state_bytes + 4, 1)):
+        ms = cuda_ms(run, reps=20)
+        call = call_ms(prep)
+        plain_ms = cuda_ms(plain, reps=3)
+        bound_ms = (barriers * S_BARRIER_S + nbytes / PEAK_BYTES) * 1e3
+        row = {
+            "name": name, "route": "cuda",
+            "source": "regard3d_tpu_torch/csrc/ba_linearize.cu",
+            "replaces": B_REPLACES, "launches": None,
+            "max_abs_err": (float((got[0] - blocks[0]).abs().max())
+                            if name == "ba_linearize_f32"
+                            else float(abs(cost - want_cost))),
+            "rel_err": ({"rows": row_err, "sums": sum_err}
+                        if name == "ba_linearize_f32" else cost_err),
+            "repeat_same": same, "ms": ms, "call_ms": call,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": f"{nbytes} bytes at the HBM rate + {barriers} grid "
+                        f"barriers (1.1 us each)",
+            "library_ms": None,
+            "shape": {**S_SHAPE, "O": O, "huber_px": 2.0,
+                      "dtype": "float32"},
+        }
+        row["regs"], row["spills"] = row_usage(usage, name)
+        log(f"(c) {name} ({json.dumps(row['shape'])}): {ms:.4f} ms, C call "
+            f"{call:.4f} ms, plain {plain_ms:.2f} ms, bound {bound_ms:.4f} "
+            f"ms; error {row['rel_err']}; repeat the same bits {same}; "
+            f"{row['regs']} registers, {row['spills']} spilled bytes")
+        rows.append(row)
+    return rows
 
 
 def phase_ties(desc, mask):
@@ -2635,6 +2749,7 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     rows = phase_kernels(descs.data, descs.mask, parr, usage)
     rows.append(phase_e_sweep(usage))
     rows.append(phase_schur_pcg(usage))
+    rows.extend(phase_ba_linearize(usage))
     phase_ties(descs.data, descs.mask)
     phase_wide(descs.data, descs.mask, parr)
     stamp("(c)")
@@ -2642,11 +2757,12 @@ def run_phases(ds, work, render, scale_wd, stamp, usage):
     stamp("(e)")
     paths["profile"] = phase_matcher_profile(descs.data, descs.mask, parr)
     stamp("(f)")
-    s_before = LAUNCHES["schur_pcg_f32"]
+    s_before = dict(LAUNCHES)
     g = phase_sfm(ds, out, work)
-    paths["sfm"] = {"schur_pcg_f32": LAUNCHES["schur_pcg_f32"] - s_before}
-    check(paths["sfm"]["schur_pcg_f32"] > 0,
-          "the Schur PCG kernel was not launched on the sfm path")
+    paths["sfm"] = launches_since(s_before)
+    for key in ("schur_pcg_f32", "ba_linearize_f32", "ba_cost_f32"):
+        check(paths["sfm"][key] > 0,
+              f"the kernel of {key} was not launched on the sfm path")
     stamp("(g)")
     k1_ranks = phase_dist(ds, out, work, g)
     stamp("(n)")

@@ -20,10 +20,16 @@ Counterpart of ``regard3d_tpu/ba/lm.py`` (single device):
   residual stop (a ``while_loop``) becomes ``cg_iterations`` fixed steps
   whose state a device-side ``done`` flag freezes: the same result without a
   host synchronisation per step. Block inverses use ``inv_ex``.
-* On the card, with no shards, the whole solve is one launch of the kernel
-  of ``kernels/schur_pcg.py`` (``csrc/schur_pcg.cu``), which leaves the CG
-  loop at the step where this loop freezes; CPU tensors and the sharded
-  hooks take ``_solve_schur`` (``lm_trial``).
+* On the card, with no shards, a trial is three C calls: the linearisation
+  (residuals, Jacobian blocks, IRLS weights and block sums) in one launch
+  of ``kernels/ba_linearize.py`` (``csrc/ba_linearize.cu``), the whole
+  solve in one launch of ``kernels/schur_pcg.py`` (``csrc/schur_pcg.cu``),
+  which leaves the CG loop at the step where this loop freezes, and the
+  cost read in one more launch of ``ba_linearize``. CPU tensors and the
+  sharded hooks take the plain ``_normal_blocks``, ``_solve_schur`` and
+  ``compute_cost`` (``lm_trial``, ``_full_cost``). What is left eager on
+  the card is ``_apply_step`` (~34 operations a trial) and the center
+  prior; the sharded BA stays eager.
 * The LM outer loop runs on the host, with one ``float(cost)`` per trial.
 
 Gauge: ``fixed_pose_mask`` pins chosen cameras. A center prior
@@ -52,7 +58,7 @@ from regard3d_tpu_torch import runtime, spans
 from regard3d_tpu_torch.core import cameras as cam
 from regard3d_tpu_torch.core.segments import (SegmentTable, make_table,
                                               segment_sum)
-from regard3d_tpu_torch.kernels import schur_pcg
+from regard3d_tpu_torch.kernels import ba_linearize, schur_pcg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -365,9 +371,10 @@ def _solve_schur(nb: _Normal, obs: BAObservations, lam, state,
 
 def _pcg_on_card(x: torch.Tensor, cam_reduce: Reduce,
                  point_reduce: Reduce) -> bool:
-    """Whether the solve is the kernel's: tensors on CUDA and no shards
-    (both hooks ``identity_reduce``). The sharded BA sums over the ranks
-    inside every CG step, which no single launch can do."""
+    """Whether the kernels linearise, solve and read the cost: tensors on
+    CUDA and no shards (both hooks ``identity_reduce``). The sharded BA
+    sums over the ranks inside the linearisation, every CG step and the
+    cost, which no single launch can do."""
     return (x.is_cuda and cam_reduce is identity_reduce
             and point_reduce is identity_reduce)
 
@@ -384,6 +391,15 @@ def _solve_schur_kernel(nb: _Normal, obs: BAObservations, lam,
         c(nb.gc), c(nb.gp), c(nb.gi), c(obs.view_id), c(obs.intr_id),
         c(obs.point_id), c(fixed_pose_mask), c(intr_dof_mask), layout.cam,
         layout.pt, layout.intr, lam, opts.cg_iterations, opts.cg_tol, steps)
+
+
+def _normal_blocks_kernel(state: BAState, obs: BAObservations,
+                          opts: BAOptions, layout: BALayout) -> _Normal:
+    """``_normal_blocks`` (no shards) as one launch of the CUDA kernel."""
+    c = lambda t: t.contiguous()
+    out = ba_linearize.linearize(*map(c, state), *map(c, obs), *layout,
+                                 opts.huber_delta_px)
+    return _Normal(*out[1:])
 
 
 def _apply_step(state: BAState, dc, dp, di) -> BAState:
@@ -410,14 +426,21 @@ def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
              point_reduce: Reduce = identity_reduce, pcg_steps=None):
     """One damped LM trial step (linearize + Schur/CG solve + apply).
     With shards, ``obs`` is this shard's rows and the hooks sum over the
-    shards (module docstring). On the card with no shards the solve is the
-    kernel's (counter ``pcg_kernel`` of the open span; ``pcg_steps``, an
-    int64 scalar on the card or None, gathers its CG steps); otherwise
+    shards (module docstring). On the card with no shards the linearisation
+    and the solve are the kernels' (counters ``ba_kernel`` and
+    ``pcg_kernel`` of the open span; ``pcg_steps``, an int64 scalar on the
+    card or None, gathers the CG steps); otherwise ``_normal_blocks`` and
     ``_solve_schur``."""
     if layout is None:
         layout = make_layout(obs, state.R.shape[0], state.X.shape[0],
                              state.intr.shape[0])
-    nb = _normal_blocks(state, obs, opts, layout, cam_reduce, point_reduce)
+    kernel = _pcg_on_card(state.X, cam_reduce, point_reduce)
+    if kernel:
+        nb = _normal_blocks_kernel(state, obs, opts, layout)
+        spans.count("ba_kernel")
+    else:
+        nb = _normal_blocks(state, obs, opts, layout, cam_reduce,
+                            point_reduce)
     if center_prior is not None and opts.center_prior_weight > 0:
         w = opts.center_prior_weight
         eye_c = torch.zeros((6, 6), dtype=state.X.dtype,
@@ -427,7 +450,7 @@ def lm_trial(state, lam, obs, opts, fixed_pose_mask, intr_mask,
         gc = nb.gc.clone()
         gc[:, 3:] += w * (state.C - center_prior)
         nb = nb._replace(U=nb.U + w * eye_c[None], gc=gc)
-    if _pcg_on_card(state.X, cam_reduce, point_reduce):
+    if kernel:
         dc, dp, di = _solve_schur_kernel(nb, obs, lam, opts, fixed_pose_mask,
                                          intr_mask, layout, pcg_steps)
         spans.count("pcg_kernel")
@@ -446,7 +469,17 @@ class BAStats(NamedTuple):
 
 def _full_cost(st: BAState, obs: BAObservations, opts: BAOptions,
                center_prior, reduce: Reduce = identity_reduce):
-    c = reduce((compute_cost(st, obs, opts).reshape(1),), "cost")[0][0]
+    """The cost with the center prior, a scalar on the state's device. On
+    the card with no shards the data term is the kernel's (counter
+    ``cost_kernel`` of the open span); otherwise ``compute_cost``, summed
+    over the shards by ``reduce``."""
+    if _pcg_on_card(st.X, reduce, reduce):
+        c = ba_linearize.cost(*(t.contiguous() for t in st),
+                              *(t.contiguous() for t in obs),
+                              opts.huber_delta_px)
+        spans.count("cost_kernel")
+    else:
+        c = reduce((compute_cost(st, obs, opts).reshape(1),), "cost")[0][0]
     if center_prior is not None and opts.center_prior_weight > 0:
         c = c + opts.center_prior_weight * torch.sum(
             (st.C - center_prior) ** 2)
@@ -479,9 +512,8 @@ def lm_loop(state: BAState, obs: BAObservations, opts: BAOptions,
 
     Spans, under the caller's: ``.trial`` (linearise, solve and apply as
     enqueued) and ``.cost`` (the cost read, which waits on the device).
-    Where the kernel solves, the CG steps it ran are gathered on the card
-    and read once, after the loop, into the caller's span's counter
-    ``pcg_steps``."""
+    Where the kernels run, the CG steps are gathered on the card and read
+    once, after the loop, into the caller's span's counter ``pcg_steps``."""
     kernel = _pcg_on_card(state.X, cam_reduce, point_reduce)
     steps = (torch.zeros((), dtype=torch.int64, device=state.X.device)
              if kernel else None)

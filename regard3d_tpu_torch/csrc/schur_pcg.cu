@@ -62,25 +62,25 @@
 // Design: one persistent cooperative grid (cudaLaunchCooperativeKernel, the
 // blocks that fit on the card at once, consecutive points and items on
 // consecutive SMs), BLOCK threads a block, grid.sync() between dependent
-// phases. Segment tables are the layout's own (core/segments.py): padded
-// (rows, mask) or sorted (order, lengths); a sorted table's segment starts
-// and each table's item starts are exclusive scans made once in the
-// prologue, with each item's segment. The CG vectors ([V*6 | K*9]) live in
-// the workspace; block 0 owns their updates. Every length is a grid-stride
-// loop: no size cap.
+// phases. Segment tables are the layout's own, walked as ba_segments.cuh
+// sets out (its prologue scans are this kernel's too). The CG vectors
+// ([V*6 | K*9]) live in the workspace; block 0 owns their updates. Every
+// length is a grid-stride loop: no size cap.
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "ba_segments.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace spcg {
 
+using namespace baseg;
+
 constexpr int BLOCK = 512;
 constexpr int WARPS = BLOCK / 32;
-constexpr int CHUNK = 64;        // table entries an item (two a lane)
-constexpr int NSCAN = 5;         // prologue scans (three starts, two items)
 
 // The arguments, as the wrapper fills them (ctypes.Structure of 8-byte
 // fields): float tensors of the problem's dtype, int64 ids, bool masks;
@@ -99,29 +99,6 @@ struct Args {
   void *dc, *dp, *di;
   long long* steps;               // CG steps run are added here (may be null)
   void* work;
-};
-
-struct Table {
-  const long long* idx;           // rows (n * cap) or order (O)
-  const float* mask;              // padded form
-  const long long* len;           // sorted form: lengths (n)
-  long long* start;               // sorted form: (n + 1) exclusive prefix
-  long long* item;                // (n + 1) exclusive prefix of items
-  int* seg;                       // cam, intr: the segment of each item
-  long long n, cap;               // cap > 0: padded
-
-  __device__ long long begin(long long s) const {
-    return cap ? s * cap : start[s];
-  }
-  __device__ long long size(long long s) const { return cap ? cap : len[s]; }
-  // the observation of entry j, -1 for a pad slot (two independent loads)
-  __device__ long long obs(long long j) const {
-    const long long o = idx[j];
-    return (cap && mask[j] == 0.0f) ? -1 : o;
-  }
-  __host__ __device__ long long items_max(long long O) const {
-    return cap ? n * ((cap + CHUNK - 1) / CHUNK) : (O + CHUNK - 1) / CHUNK + n;
-  }
 };
 
 template <typename T>
@@ -146,35 +123,12 @@ struct Params {
 // workspace
 // ---------------------------------------------------------------------------
 
-inline size_t up16(size_t b) { return (b + 15) & ~size_t(15); }
-
-struct Carve {
-  char* base;
-  size_t off = 0;
-  template <typename U>
-  U* take(long long n) {
-    U* p = reinterpret_cast<U*>(base ? base + off : nullptr);
-    off += up16(sizeof(U) * size_t(n > 0 ? n : 1));
-    return p;
-  }
-};
-
 template <typename T>
 size_t carve(const Args& a, Params<T>* P) {
   Carve c{static_cast<char*>(a.work)};
   const long long n[3] = {a.V, a.L, a.K};
   const long long nv = a.V * 6 + a.K * 9;
-  for (int t = 0; t < 3; ++t) {
-    Table& tb = P->tab[t];
-    tb.idx = a.idx[t];
-    tb.mask = a.mask[t];
-    tb.len = a.lengths[t];
-    tb.n = n[t];
-    tb.cap = a.cap[t];
-    tb.start = c.take<long long>(n[t] + 1);
-    tb.item = c.take<long long>(n[t] + 1);
-    tb.seg = c.take<int>(t == 1 ? 0 : tb.items_max(a.O));
-  }
+  carve_tables(c, P->tab, a.idx, a.mask, a.lengths, a.cap, n, a.O);
   P->Vinv = c.take<T>(a.L * 9);
   P->y = c.take<T>(a.L * 3);
   P->pm = c.take<T>(nv);
@@ -193,44 +147,6 @@ size_t carve(const Args& a, Params<T>* P) {
 // ---------------------------------------------------------------------------
 // device helpers
 // ---------------------------------------------------------------------------
-
-// out[s] = sum of f(s') over s' < s, out[n] the total: one block
-template <typename F>
-__device__ void block_scan(long long n, F f, long long* out, long long* sh) {
-  const long long per = (n + BLOCK - 1) / BLOCK;
-  const long long b = threadIdx.x * per, e = b + per < n ? b + per : n;
-  long long sum = 0;
-  for (long long s = b; s < e; ++s) sum += f(s);
-  sh[threadIdx.x] = sum;
-  __syncthreads();
-  for (int off = 1; off < BLOCK; off <<= 1) {
-    const long long v = threadIdx.x >= off ? sh[threadIdx.x - off] : 0;
-    __syncthreads();
-    sh[threadIdx.x] += v;
-    __syncthreads();
-  }
-  long long run = threadIdx.x ? sh[threadIdx.x - 1] : 0;
-  for (long long s = b; s < e; ++s) {
-    out[s] = run;
-    run += f(s);
-  }
-  if (threadIdx.x == BLOCK - 1) out[n] = sh[BLOCK - 1];
-  __syncthreads();
-}
-
-// the sum of v over the block, to every thread (fixed tree)
-template <typename T>
-__device__ T block_sum(T v, T* sh) {
-  sh[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = BLOCK / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) sh[threadIdx.x] += sh[threadIdx.x + s];
-    __syncthreads();
-  }
-  const T total = sh[0];
-  __syncthreads();
-  return total;
-}
 
 // max(v, lo), NaN kept (torch.clamp_min)
 template <typename T>
@@ -258,12 +174,6 @@ __device__ void inv3(const T* m, T lam, T* out) {
   out[6] = c02 / det;
   out[7] = (a[1] * a[6] - a[0] * a[7]) / det;
   out[8] = (a[0] * a[4] - a[1] * a[3]) / det;
-}
-
-// This thread's first index of a grid-stride loop, consecutive indices on
-// consecutive blocks: a short loop still spreads over every SM
-__device__ long long spread_id() {
-  return blockIdx.x + (long long)gridDim.x * threadIdx.x;
 }
 
 // J (2 x N, row-major) x -> (2,)
@@ -448,7 +358,7 @@ template <typename T>
 __device__ T dot(const T* x, const T* y, long long a, long long b, T* sh) {
   T acc = 0;
   for (long long j = a + threadIdx.x; j < b; j += BLOCK) acc += x[j] * y[j];
-  return block_sum(acc, sh);
+  return block_sum<BLOCK>(acc, sh);
 }
 
 template <typename T>
@@ -513,21 +423,7 @@ __global__ void __launch_bounds__(BLOCK, 1) schur_pcg_kernel(Params<T> P) {
   const long long stride = (long long)gridDim.x * BLOCK;
 
   // prologue: the tables' scans, one a block
-  for (int task = blockIdx.x; task < NSCAN; task += gridDim.x) {
-    const Table& tb = P.tab[task < 3 ? task : (task == 3 ? 0 : 2)];
-    if (task < 3) {
-      if (!tb.cap)
-        block_scan(tb.n, [&](long long s) { return tb.len[s]; }, tb.start,
-                   shl);
-    } else {
-      block_scan(tb.n, [&](long long s) {
-        return (tb.size(s) + CHUNK - 1) / CHUNK;
-      }, tb.item, shl);
-      for (long long s = threadIdx.x; s < tb.n; s += BLOCK)
-        for (long long it = tb.item[s]; it < tb.item[s + 1]; ++it)
-          tb.seg[it] = int(s);
-    }
-  }
+  table_scans<BLOCK>(P.tab, shl);
   if (blockIdx.x == 0) {
     int any = 0;
     for (long long j = threadIdx.x; j < P.K * 9; j += BLOCK)
@@ -579,11 +475,6 @@ __global__ void __launch_bounds__(BLOCK, 1) schur_pcg_kernel(Params<T> P) {
   if (tid == 0 && P.steps) *P.steps += k;
 }
 
-struct Launch {
-  int blocks_per_sm[2] = {0, 0};
-  int sms = 0;
-};
-
 template <typename T>
 int launch(const Args& a, cudaStream_t stream, int device) {
   Params<T> P;
@@ -616,39 +507,16 @@ int launch(const Args& a, cudaStream_t stream, int device) {
 
   // the blocks one wave holds (cooperative launch): each pass is short
   // and latency-bound, so it spreads over every SM (spread_id)
-  static Launch cache[64];
-  Launch& c = cache[device & 63];
-  const int ti = sizeof(T) == 4 ? 0 : 1;
-  cudaError_t e = cudaSuccess;
-  if (!c.sms) {
-    e = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
-                               device);
-    if (e != cudaSuccess) return int(e);
-  }
-  if (!c.blocks_per_sm[ti]) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &c.blocks_per_sm[ti], schur_pcg_kernel<T>, BLOCK, 0);
-    if (e != cudaSuccess) return int(e);
-    if (!c.blocks_per_sm[ti]) return int(cudaErrorLaunchOutOfResources);
-  }
-  const int grid = c.blocks_per_sm[ti] * c.sms;
+  static int cache[64][2];
+  int& grid = cache[device & 63][sizeof(T) == 4 ? 0 : 1];
+  const void* kernel = (const void*)schur_pcg_kernel<T>;
+  cudaError_t e = wave_blocks(kernel, BLOCK, device, &grid);
+  if (e != cudaSuccess) return int(e);
   void* args[] = {&P};
-  e = cudaLaunchCooperativeKernel((const void*)schur_pcg_kernel<T>,
-                                  dim3(grid), dim3(BLOCK), args, 0, stream);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(BLOCK), args, 0,
+                                  stream);
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
-}
-
-// runs f on card `device`, the calling thread's current device restored
-template <typename F>
-int on_device(int device, F f) {
-  int prev = 0;
-  cudaError_t e = cudaGetDevice(&prev);
-  if (e == cudaSuccess && prev != device) e = cudaSetDevice(device);
-  if (e != cudaSuccess) return int(e);
-  const int err = f();
-  if (prev != device) cudaSetDevice(prev);
-  return err;
 }
 
 }  // namespace spcg

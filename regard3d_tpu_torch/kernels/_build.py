@@ -64,6 +64,12 @@ SIGNATURES = {
         "r3d_schur_pcg_workspace": (_L, [_I, "schur_pcg._Args"]),
         "r3d_schur_pcg": (_I, [_I, _I, "schur_pcg._Args", _P]),
     },
+    "ba_linearize.cu": {
+        f"r3d_ba_{entry}{part}": sig
+        for entry in ("linearize", "cost")
+        for part, sig in (("_workspace", (_L, [_I, "ba_linearize._Args"])),
+                          ("", (_I, [_I, _I, "ba_linearize._Args", _P])))
+    },
 }
 
 # C calls of the kernels by entry and dtype: plain integers that callers
@@ -72,7 +78,8 @@ SIGNATURES = {
 LAUNCHES: Dict[str, int] = dict.fromkeys(
     [f"l2_top2{w}_{t}" for w in ("_block", "") for t in ("f32", "bf16")]
     + [f"l2_top2_block_{m}_bf16" for m in ("mm_only", "min_only")]
-    + [f"{k}_{t}" for k in ("e_sweep", "e_solve", "schur_pcg")
+    + [f"{k}_{t}" for k in ("e_sweep", "e_solve", "schur_pcg",
+                            "ba_linearize", "ba_cost")
        for t in ("f32", "f64")], 0)
 
 
@@ -88,11 +95,25 @@ def nvcc_path() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_bytes(src: str) -> bytes:
+    """The bytes of ``src`` and of each header beside it that it includes
+    (``#include "name"``), recursively."""
+    with open(src, "rb") as f:
+        text = f.read()
+    for name in _INCLUDE.findall(text):
+        header = os.path.join(os.path.dirname(src), name.decode())
+        if os.path.exists(header):
+            text += _source_bytes(header)
+    return text
+
+
 def library_path(src: str, flags) -> str:
     """Where the library of source file ``src`` built with ``flags`` goes:
-    its name hashes both."""
-    with open(src, "rb") as f:
-        h = hashlib.sha1(f.read() + " ".join(flags).encode())
+    its name hashes both, and the headers the source includes."""
+    h = hashlib.sha1(_source_bytes(src) + " ".join(flags).encode())
     stem = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(runtime.kernel_build_dir(),
                         f"lib{stem}_{h.hexdigest()[:12]}.so")

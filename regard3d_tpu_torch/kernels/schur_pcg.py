@@ -43,9 +43,12 @@ class _Args(ctypes.Structure):
                 + [(n, _P) for n in ("dc", "dp", "di", "steps", "work")])
 
 
-def _table_fields(name, table: SegmentTable, n: int, O: int, want, tensors):
-    """The table's tensors for ``_build.check`` and its (idx, mask,
-    lengths, cap) for the C call."""
+def table_fields(name, table: SegmentTable, n: int, O: int, want, tensors):
+    """A ``SegmentTable`` of ``n`` segments over ``O`` rows as the C entries
+    of the BA kernels take it: its tensors added to ``want`` and ``tensors``
+    for ``_build.check``, and its (idx, mask, lengths, cap) returned for
+    :func:`put_tables`. Raises ValueError on a table of another segment
+    count or of neither form."""
     if table.n != n:
         raise ValueError(f"table {name} has {table.n} segments, want {n}")
     if table.rows is not None:
@@ -64,6 +67,15 @@ def _table_fields(name, table: SegmentTable, n: int, O: int, want, tensors):
     tensors[f"{name}.order"] = table.order
     tensors[f"{name}.lengths"] = table.lengths
     return table.order, None, table.lengths, 0
+
+
+def put_tables(a: ctypes.Structure, tables) -> None:
+    """The (idx, mask, lengths, cap) of the three tables (cam, pt, intr,
+    from :func:`table_fields`) into the C arguments ``a``."""
+    ptr = lambda t: None if t is None else t.data_ptr()
+    for i, (idx, mask, lengths, cap) in enumerate(tables):
+        a.idx[i], a.mask[i], a.lengths[i] = ptr(idx), ptr(mask), ptr(lengths)
+        a.cap[i] = cap
 
 
 def prepare(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
@@ -92,7 +104,7 @@ def prepare(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
     if steps is not None:
         want["steps"] = ((), torch.int64)
         tensors["steps"] = steps
-    tables = [_table_fields(name, t, n, O, want, tensors)
+    tables = [table_fields(name, t, n, O, want, tensors)
               for name, t, n in (("cam", cam, V), ("pt", pt, L),
                                  ("intr", intr, K))]
     if cg_iterations < 0:
@@ -109,9 +121,7 @@ def prepare(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
         "intr_id", "point_id")})
     a.fixed = fixed_pose_mask.data_ptr()
     a.intr_free = intr_dof_mask.data_ptr()
-    for i, (idx, mask, lengths, cap) in enumerate(tables):
-        a.idx[i], a.mask[i], a.lengths[i] = ptr(idx), ptr(mask), ptr(lengths)
-        a.cap[i] = cap
+    put_tables(a, tables)
     a.V, a.L, a.K, a.O, a.iterations = V, L, K, O, int(cg_iterations)
     a.lam, a.tol2 = float(lam), float(cg_tol) ** 2
     a.dc, a.dp, a.di, a.steps = dc.data_ptr(), dp.data_ptr(), \

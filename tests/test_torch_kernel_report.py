@@ -143,6 +143,24 @@ def test_compile_library_keeps_the_compiler_output(tmp_path, monkeypatch):
     assert "-Xptxas" in _build.NVCC_FLAGS and "-v" in _build.NVCC_FLAGS
 
 
+def test_library_path_follows_the_included_headers(tmp_path, monkeypatch):
+    """A library's name hashes its source and the headers beside it that
+    the source includes (recursively), so an edited header is built
+    again; a system header and a missing one are not read."""
+    monkeypatch.setenv("R3D_TORCH_BUILD_DIR", str(tmp_path / "kb"))
+    (tmp_path / "a.cuh").write_text('#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <cstdint>\n#include "a.cuh"\n'
+                   '#include "missing.cuh"\n')
+    first = _build.library_path(str(src), ["-O3"])
+    assert _build.library_path(str(src), ["-O3"]) == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = _build.library_path(str(src), ["-O3"])
+    assert second != first and os.path.basename(second).startswith("libk_")
+    assert _build.library_path(str(src), ["-O2"]) != second
+
+
 def test_timing_needs_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA card"):

@@ -7,8 +7,10 @@ raises on what the kernel cannot take and nothing falls back from it. The
 counters ``pcg_kernel`` (a trial the kernel solved, on the ``.trial``
 span) and ``pcg_steps`` (its CG steps, read once after the LM loop, on the
 caller's span) reach a step's ``stats["spans"]``: shown here with the
-launch replaced by the plain solve. The kernel itself runs in
-``tests/test_torch_schur_pcg_kernel.py``, on the card.
+launch replaced by the plain solve. Where a test takes CPU tensors for the
+card's, the linearisation and cost kernels (``kernels/ba_linearize.py``)
+are replaced by their plain versions too (``plain_kernels``). The kernel
+itself runs in ``tests/test_torch_schur_pcg_kernel.py``, on the card.
 
 ``ba_problem`` builds the BA problems of both files without JAX.
 """
@@ -25,7 +27,7 @@ from regard3d_tpu_torch.ba import lm
 from regard3d_tpu_torch.ba import sharded
 from regard3d_tpu_torch.core import cameras as cam
 from regard3d_tpu_torch.core.types import PINHOLE, RADIAL_K3
-from regard3d_tpu_torch.kernels import _build, schur_pcg
+from regard3d_tpu_torch.kernels import _build, ba_linearize, schur_pcg
 
 torch.set_num_threads(min(2, torch.get_num_threads()))
 
@@ -126,6 +128,35 @@ def plain_launch(A, B, Ji, w, U, Vl, Ui, gc, gp, gi, view_id, intr_id,
     return out
 
 
+def plain_linearize(R, C, intr, X, view_id, intr_id, point_id, model, xy,
+                    weight, cam_t, pt_t, intr_t, huber_delta_px):
+    """A stand-in for the linearisation kernel's launch on the CPU: the
+    plain linearisation of the same inputs, the residuals first."""
+    state = lm.BAState(R, C, intr, X)
+    obs = lm.BAObservations(view_id, intr_id, point_id, model, xy, weight)
+    opts = lm.BAOptions(huber_delta_px=huber_delta_px)
+    return (lm._build_blocks(state, obs, opts)[0],
+            *lm._normal_blocks(state, obs, opts,
+                               lm.BALayout(cam_t, pt_t, intr_t)))
+
+
+def plain_cost(R, C, intr, X, view_id, intr_id, point_id, model, xy,
+               weight, huber_delta_px):
+    """A stand-in for the cost kernel's launch on the CPU."""
+    return lm.compute_cost(
+        lm.BAState(R, C, intr, X),
+        lm.BAObservations(view_id, intr_id, point_id, model, xy, weight),
+        lm.BAOptions(huber_delta_px=huber_delta_px))
+
+
+@pytest.fixture()
+def plain_kernels(monkeypatch):
+    """The linearisation and cost launches replaced by their plain
+    versions, for CPU tensors taken for the card's."""
+    monkeypatch.setattr(ba_linearize, "linearize", plain_linearize)
+    monkeypatch.setattr(ba_linearize, "cost", plain_cost)
+
+
 @pytest.fixture()
 def small():
     return ba_problem(n_cams=5, n_pts=40)
@@ -167,7 +198,8 @@ def test_only_unsharded_card_tensors_take_the_kernel():
     assert not lm._pcg_on_card(torch.zeros(1), ident, ident)
 
 
-def test_sharded_hooks_take_the_plain_solve(small, monkeypatch):
+def test_sharded_hooks_take_the_plain_solve(small, monkeypatch,
+                                           plain_kernels):
     """A trial with non-identity hooks, on tensors taken for the card's,
     never reaches the kernel's launch."""
     state, obs, fixed, _ = small
@@ -186,7 +218,7 @@ def test_sharded_hooks_take_the_plain_solve(small, monkeypatch):
         lm.lm_trial(state, 1e-3, obs, lm.BAOptions(), fixed, imask)
 
 
-def test_kernel_failure_is_not_caught(small, monkeypatch):
+def test_kernel_failure_is_not_caught(small, monkeypatch, plain_kernels):
     """A failed launch raises out of the trial: no plain solve instead."""
     state, obs, fixed, _ = small
     monkeypatch.setattr(lm, "_pcg_on_card", lambda x, c, p: True)
@@ -199,7 +231,7 @@ def test_kernel_failure_is_not_caught(small, monkeypatch):
                     lm.intr_mask_of(obs, 1, False))
 
 
-def test_pcg_counters_reach_the_spans(small, monkeypatch):
+def test_pcg_counters_reach_the_spans(small, monkeypatch, plain_kernels):
     """With the launch replaced by the plain solve (3 steps a call): one
     ``pcg_kernel`` a trial on ``triangulation.ba.trial``, and
     ``pcg_steps`` = 3 x trials once on the caller's ``triangulation.ba``;
